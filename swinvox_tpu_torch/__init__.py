@@ -1,0 +1,25 @@
+"""swinvox_tpu_torch — the serving path of swinvox_tpu in PyTorch + CUDA.
+
+A port of the JAX package ``swinvox_tpu`` for one NVIDIA H100 (Hopper,
+sm_90a).  The JAX package stays the reference: every module here has a
+counterpart at the same relative path there, and the tests feed both the
+same weights and inputs.
+
+  * ``models/``  — ``SwinVoxModel`` and its parts, inference only;
+  * ``ops/``     — the window-attention core and the two hand-written
+                   kernels of the serving path (``rewindow``, the fused
+                   Swin block), each beside its plain PyTorch version;
+  * ``kernels/`` — builds ``csrc/*.cu`` with nvcc at first use;
+  * ``convert``  — loads the JAX package's ``{"params", "batch_stats"}``;
+  * ``config``   — the serving fields of the JAX package's ``Config``;
+  * ``data``     — image files in (eval transform), binvox out;
+  * ``infer``    — ``Predictor``;
+  * ``serve``    — ``BatchingServer``, micro-batching around a predictor.
+
+Layouts at the public functions follow the JAX package: images
+``[B, N, H, W, 3]``, window-major tokens ``[nW, T, C]``, volumes
+``[B, 32, 32, 32]``.  Inside, the convolutional modules run NCHW/NCDHW.
+This package imports ``torch`` and never ``jax``, nor the JAX package.
+"""
+
+__version__ = "0.1.0"

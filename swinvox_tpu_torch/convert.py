@@ -1,0 +1,95 @@
+"""Weight bridge: the JAX package's variables -> the port's ``SwinVoxModel``.
+
+The JAX model's variables are ``{"params": ..., "batch_stats": ...}``
+nested dicts; with their leaves as numpy arrays (``jax.device_get`` of the
+flax tree, or a checkpoint read into numpy) ``load_jax_variables`` copies
+them into a port module.  The port names its submodules after the flax
+paths, so a leaf's torch name is its flax path with the flax wrapper
+levels (``Conv_0``, ``Dense_0``, ``LayerNorm_0``, and the BatchNorm's
+``bn``) dropped, e.g.
+
+  params/encoder/swin/stage0_block0/attn/qkv_kernel
+      -> encoder.swin.stage0_block0.attn.qkv_kernel
+  batch_stats/encoder/resnet/bn1/bn/mean -> encoder.resnet.bn1.mean
+
+and the layout change depends only on the owning module's type:
+``Conv`` kernels (*k, in, out) -> (out, in, *k); ``ConvTranspose``
+kernels are spatially flipped and laid out (in, out, *k) (the JAX
+transposed conv does not flip, torch's does); the encoder's [C, H, W]
+``LayerNorm`` affine comes from [H, W, C].  Any leaf left over or missing,
+on either side, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from swinvox_tpu_torch.models.layers import Conv, ConvTranspose, LayerNorm
+
+_WRAPPERS = frozenset({"Conv_0", "Dense_0", "LayerNorm_0", "bn"})
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, Mapping):
+            yield from _flatten(val, path)
+        else:
+            yield path, val
+
+
+def torch_name(path: Tuple[str, ...]) -> str:
+    """The port's parameter/buffer name of a flax leaf path."""
+    return ".".join(p for p in path if p not in _WRAPPERS)
+
+
+def to_torch_layout(owner: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
+    """Rearranges one flax leaf for the port module ``owner``."""
+    if leaf == "kernel" and isinstance(owner, Conv):
+        nd = arr.ndim - 2
+        return np.transpose(arr, (nd + 1, nd, *range(nd)))
+    if leaf == "kernel" and isinstance(owner, ConvTranspose):
+        nd = arr.ndim - 2
+        arr = np.flip(arr, axis=tuple(range(nd)))
+        return np.transpose(arr, (nd, nd + 1, *range(nd)))
+    if isinstance(owner, LayerNorm) and len(owner.shape) == 3:
+        return np.transpose(arr, (2, 0, 1))
+    return arr
+
+
+def load_jax_variables(model: nn.Module,
+                       variables: Mapping[str, Mapping]) -> None:
+    """Copies a flax ``{"params", "batch_stats"}`` tree into ``model``."""
+    sources: Dict[str, Tuple[str, np.ndarray]] = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(coll, {})):
+            name = torch_name(path)
+            if name in sources:
+                raise ValueError(f"two flax leaves map to {name}")
+            sources[name] = ("/".join((coll,) + path), np.asarray(leaf))
+    extra = set(variables) - {"params", "batch_stats"}
+    if extra:
+        raise ValueError(f"unexpected variable collections {sorted(extra)}")
+    targets = model.state_dict(keep_vars=True)
+    missing = sorted(set(targets) - set(sources))
+    leftover = sorted(sources[n][0] for n in set(sources) - set(targets))
+    if missing or leftover:
+        raise ValueError(
+            f"weight bridge mismatch: {len(missing)} port tensors without a "
+            f"flax leaf {missing[:8]}, {len(leftover)} flax leaves without a "
+            f"port tensor {leftover[:8]}"
+        )
+    with torch.no_grad():
+        for name, tensor in targets.items():
+            owner_name, _, leaf = name.rpartition(".")
+            owner = model.get_submodule(owner_name)
+            flax_path, arr = sources[name]
+            arr = to_torch_layout(owner, leaf, arr)
+            if tuple(arr.shape) != tuple(tensor.shape):
+                raise ValueError(f"{flax_path}: shape {arr.shape} does not "
+                                 f"fit {name} {tuple(tensor.shape)}")
+            tensor.copy_(torch.from_numpy(arr.copy()))  # copy: drops flips

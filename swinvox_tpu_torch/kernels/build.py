@@ -1,0 +1,122 @@
+"""Builds ``swinvox_tpu_torch/csrc/*.cu`` with nvcc and loads it via ctypes.
+
+The kernels are compiled at first use into ``swinvox_tpu_torch/_build/``
+(git-ignored) as one shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o libswinvox_kernels-<hash>.so csrc/*.cu
+
+The file name carries a hash of the sources and flags, so an edited
+source rebuilds; each build writes a per-process temporary and renames it
+atomically, so concurrent builders never load a half-written library.
+nvcc's output (``-Xptxas -v``: registers, shared memory, spills per
+kernel) is kept beside the library as ``.log``.
+
+A failed build raises: there is no CPU fallback behind a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): cannot build the CUDA kernels")
+
+
+def _sources():
+    cu = sorted(CSRC_DIR.glob("*.cu"))
+    if not cu:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return cu, sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    cu, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libswinvox_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compiles the kernels unless the library for these sources exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cu, _ = _sources()
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return so
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f = ctypes.c_float
+    lib.swinvox_cuda_error_string.argtypes = [i]
+    lib.swinvox_cuda_error_string.restype = ctypes.c_char_p
+    # (x, out, n_windows, nwh, nww, window, shift, sign, row_bytes, stream)
+    lib.swinvox_rewindow.argtypes = [p, p, i64, i, i, i, i, i, i64, p]
+    lib.swinvox_rewindow.restype = i
+    # (x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, rel_bias, mask, nw_img,
+    #  ln2s, ln2b, w1, b1, w2, b2, out, qkv, ctx, x2, hidden,
+    #  n_windows, tokens, channels, heads, scale, eps, stream)
+    lib.swinvox_swin_block.argtypes = (
+        [p] * 9 + [i] + [p] * 11 + [i64, i, i, i, f, f, p]
+    )
+    lib.swinvox_swin_block.restype = i
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raises if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().swinvox_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

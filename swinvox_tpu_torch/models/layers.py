@@ -1,0 +1,260 @@
+"""Shared building blocks: convs, dense, norms, pools, resize, init.
+
+Counterpart of ``swinvox_tpu/models/layers.py``.  Parameters are float32
+and are cast to the module's compute ``dtype`` at each use; normalization
+statistics are float32 — the JAX package's cast points.  The convolutional
+modules take NCHW / NCDHW tensors and hold their kernels in torch's layout
+(``convert.py`` transposes the flax kernels); ``Dense`` keeps flax's
+``[in, out]`` kernel, which is also the layout the Swin-block kernel reads.
+
+Parameter and buffer names are the flax leaf names (``kernel``, ``bias``,
+``scale``, ``mean``, ``var``) so the weight bridge maps paths mechanically.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# gain for kaiming-normal with leaky_relu nonlinearity, a=0.02
+_LEAKY_GAIN = math.sqrt(2.0 / (1.0 + 0.02**2))
+
+IntOrTuple = Union[int, Sequence[int]]
+
+
+def _tuple(v: IntOrTuple, rank: int) -> Tuple[int, ...]:
+    return (v,) * rank if isinstance(v, int) else tuple(v)
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Matmul of operands in the compute dtype with a float32 result —
+    ``preferred_element_type=float32`` in the JAX package: the products of
+    bf16 values are exact in f32, so upcasting first is the same math."""
+    return torch.matmul(a.float(), b.float())
+
+
+class Conv(nn.Module):
+    """Conv (2D or 3D by kernel rank); ``kernel`` is [out, in/groups, *k]."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        kernel_size: Sequence[int],
+        strides: IntOrTuple = 1,
+        padding: IntOrTuple = 0,
+        use_bias: bool = True,
+        feature_group_count: int = 1,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.rank = len(kernel_size)
+        self.strides = _tuple(strides, self.rank)
+        self.padding = _tuple(padding, self.rank)
+        self.groups = feature_group_count
+        self.dtype = dtype
+        self.kernel = nn.Parameter(
+            torch.empty(features, in_features // feature_group_count,
+                        *kernel_size)
+        )
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = F.conv2d if self.rank == 2 else F.conv3d
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return conv(
+            x.to(self.dtype), self.kernel.to(self.dtype), bias,
+            stride=self.strides, padding=self.padding, groups=self.groups,
+        )
+
+
+class ConvTranspose(nn.Module):
+    """3D transposed conv, torch output geometry: out = (in-1)*s - 2p + k.
+
+    The JAX module is an input-dilated correlation whose kernel is NOT
+    flipped (``swinvox_tpu/models/layers.py`` ConvTranspose); torch's
+    ``conv_transpose`` flips, so ``kernel`` here is the flax kernel
+    spatially flipped and laid out [in, out, *k] (``convert.py`` does it).
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        kernel_size: Sequence[int],
+        strides: IntOrTuple = 1,
+        padding: IntOrTuple = 0,
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.strides = _tuple(strides, 3)
+        self.padding = _tuple(padding, 3)
+        self.dtype = dtype
+        self.kernel = nn.Parameter(
+            torch.empty(in_features, features, *kernel_size)
+        )
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose3d(x.to(self.dtype), self.kernel.to(self.dtype),
+                               stride=self.strides, padding=self.padding)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype).view(-1, 1, 1, 1)
+        return y
+
+
+class Dense(nn.Module):
+    """Linear layer over the last axis; ``kernel`` is flax's [in, out]."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing ``len(shape)`` axes, float32 compute.
+
+    ``shape`` of length 1 is the transformer LayerNorm over channels-last
+    tokens; the encoder's per-stage norm is the reference's
+    ``nn.LayerNorm([C, H, W])`` on NCHW maps (JAX: ``num_axes=3`` over
+    [H, W, C]; the bridge transposes its affine).
+    """
+
+    def __init__(
+        self,
+        shape: Union[int, Sequence[int]],
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(self.shape))
+        self.bias = nn.Parameter(torch.zeros(self.shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.shape, self.scale, self.bias, 1e-5)
+        return y.to(self.dtype)
+
+
+class Norm(nn.Module):
+    """BatchNorm in eval mode (running stats), float32, on channel axis 1.
+
+    Counterpart of the JAX ``Norm`` at ``train=False``: eps 1e-5, the
+    normalization computed in float32 and rounded once to ``dtype``.
+    ``F.batch_norm`` takes compute-dtype input with float32 statistics and
+    does that in one pass.  Training (batch statistics, biased-variance
+    running update) is a later port.
+    """
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.batch_norm(x, self.mean, self.var, self.scale,
+                         self.bias, training=False, eps=1e-5)
+        return y.to(self.dtype)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
+             padding: int = 0) -> torch.Tensor:
+    """Max pool over the spatial dims of NCHW / NCDHW input (padding is
+    -inf, as the JAX trunk pads before its VALID pool)."""
+    pool = F.max_pool2d if x.dim() == 4 else F.max_pool3d
+    return pool(x, window, stride or window, padding)
+
+
+def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Average pool of NCHW input, stride = window (VALID)."""
+    return F.avg_pool2d(x, window)
+
+
+def adaptive_avg_pool_7_to_2(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool2d((2, 2)) on 7x7 NCHW input: torch's bins for 7 -> 2
+    are [0:4) and [3:7), i.e. window 4, stride 3."""
+    return F.avg_pool2d(x, 4, 3)
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NCHW input with half-pixel centers.
+
+    Equals ``jax.image.resize(method="bilinear")``: on upsampling that is
+    ``F.interpolate(align_corners=False)`` (both clamp at the border); on
+    downsampling JAX antialiases, hence ``antialias=True``.
+    """
+    y = F.interpolate(x.float(), size=size, mode="bilinear",
+                      align_corners=False, antialias=True)
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------------ init
+
+
+def init_reference_(
+    module: nn.Module, generator: torch.Generator, scheme: str = "reference"
+) -> None:
+    """Draw every parameter of ``module`` as the JAX package initializes it
+    (``swinvox_tpu/models/layers.py:56-90``), from ``generator``:
+
+      * Conv / ConvTranspose kernels: kaiming-normal(fan_out, leaky_relu
+        a=0.02), x0.1 under the "reference" scheme; biases zero;
+      * Dense kernels: normal(0, 0.01) x0.1 ("reference") or lecun-normal
+        ("standard"); biases zero;
+      * LayerNorm / BatchNorm affine ones / zeros, running stats 0 / 1;
+      * Swin relative-position tables: truncated normal(0.02).
+
+    The two frameworks draw different numbers from one seed, so the tests
+    load identical weights through ``convert.py`` instead.
+    """
+    if scheme not in ("reference", "standard"):
+        raise ValueError(f"unknown init scheme {scheme!r}")
+    conv_scale = 0.1 if scheme == "reference" else 1.0
+
+    def dense_(k: torch.Tensor) -> None:
+        if scheme == "reference":
+            k.normal_(0.0, 0.01 * 0.1, generator=generator)
+        else:
+            # flax lecun_normal: truncated normal at +-2 std, renormalized
+            # to unit variance over fan_in
+            std = math.sqrt(1.0 / k.shape[0]) / 0.8796256610342398
+            nn.init.trunc_normal_(k, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, (Conv, ConvTranspose)):
+                k = mod.kernel
+                out_axis = 0 if isinstance(mod, Conv) else 1
+                fan_out = k.shape[out_axis] * math.prod(k.shape[2:])
+                std = _LEAKY_GAIN / math.sqrt(fan_out) * conv_scale
+                k.normal_(0.0, std, generator=generator)
+            elif isinstance(mod, Dense):
+                dense_(mod.kernel)
+            elif hasattr(mod, "rel_pos_bias_table"):  # swin WindowMSA
+                dense_(mod.qkv_kernel)
+                dense_(mod.proj_kernel)
+                nn.init.trunc_normal_(mod.rel_pos_bias_table, 0.0, 0.02,
+                                      -0.04, 0.04, generator=generator)

@@ -1,0 +1,94 @@
+"""Window-major relayout between Swin blocks in one pass (kernel A).
+
+Counterpart of ``swinvox_tpu/ops/rewindow.py``.  ``rewindow(x, sign=-1)``
+maps window-major tokens of the image to those of the image cyclically
+rolled by ``-shift`` (what a shifted-window block wants); ``sign=+1`` is
+the exact inverse.  On a CUDA tensor it launches ``csrc/rewindow.cu``, a
+gather that reads and writes every byte once; on a CPU tensor it runs
+``rewindow_reference``, the same permutation in plain PyTorch.
+
+Tokens are stored unpadded, [B * nWh * nWw, window**2, C]: the JAX
+package pads them to 64 for Mosaic's sublane tiling, which Hopper does
+not need.  Inference only (no autograd).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from swinvox_tpu_torch.kernels import build
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B * nW, T, C]."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // window, window, w // window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
+
+
+def window_unpartition(x: torch.Tensor, window: int, h: int,
+                       w: int) -> torch.Tensor:
+    """[B * nW, T, C] -> [B, H, W, C]."""
+    c = x.shape[-1]
+    b = x.shape[0] // ((h // window) * (w // window))
+    x = x.reshape(b, h // window, w // window, window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+
+
+def _check(x: torch.Tensor, nwh: int, nww: int, window: int, shift: int,
+           sign: int) -> None:
+    if sign not in (-1, 1):
+        raise ValueError(f"sign must be -1 or +1, got {sign}")
+    if not 0 < shift < window:
+        raise ValueError(f"need 0 < shift < window, got {shift}, {window}")
+    if x.dim() != 3 or x.shape[1] != window * window:
+        raise ValueError(
+            f"expected [nW, {window * window}, C] tokens, got {tuple(x.shape)}"
+        )
+    if x.shape[0] % (nwh * nww):
+        raise ValueError(f"{x.shape[0]} windows is not a multiple of "
+                         f"{nwh} x {nww}")
+
+
+def rewindow_reference(x: torch.Tensor, nwh: int, nww: int, window: int,
+                       shift: int, sign: int) -> torch.Tensor:
+    """Plain PyTorch: unpartition -> roll by sign*shift -> partition."""
+    _check(x, nwh, nww, window, shift, sign)
+    img = window_unpartition(x, window, nwh * window, nww * window)
+    img = torch.roll(img, shifts=(sign * shift, sign * shift), dims=(1, 2))
+    return window_partition(img, window)
+
+
+def rewindow(x: torch.Tensor, nwh: int, nww: int, window: int, shift: int,
+             sign: int) -> torch.Tensor:
+    """Permutes window-major tokens between the aligned and shifted window
+    layouts: equals ``rewindow_reference``, exactly.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches kernel A
+    (any dtype: the kernel moves 16-byte vectors, so a row of C channels
+    must span a multiple of 16 bytes) or raises.
+    """
+    if x.device.type == "cpu":
+        return rewindow_reference(x, nwh, nww, window, shift, sign)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"rewindow: unsupported device {x.device}")
+    _check(x, nwh, nww, window, shift, sign)
+    if (not x.is_contiguous() or x.data_ptr() % 16
+            or (x.shape[2] * x.element_size()) % 16):
+        raise ValueError("rewindow: x must be contiguous and 16-byte "
+                         "aligned, with C * itemsize a multiple of 16, got "
+                         f"C={x.shape[2]} {x.dtype}")
+    lib = build.library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.swinvox_rewindow(
+            x.data_ptr(), out.data_ptr(), x.shape[0], nwh, nww, window,
+            shift, sign, x.shape[2] * x.element_size(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(err, "rewindow")
+    rewindow.launches += 1
+    return out
+
+
+rewindow.launches = 0
