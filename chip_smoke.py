@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch + CUDA port's serving path once on one NVIDIA GPU.
+"""Drives the PyTorch + CUDA port's serving path and training step on one
+NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
@@ -30,12 +31,61 @@ raises, so the exit code is nonzero):
      runs it) and with its default algorithms; device time per layer
      (CUDA events around the model's submodules) and a torch.profiler
      breakdown of one ``predict``; sustained serving throughput: 640
-     requests queued at once, 20 full batches, 3 runs.
+     requests queued at once, 20 full batches, 3 runs;
+  8. kernels C and D (training Swin block forward and backward) against
+     their plain version (autograd through plain ops) at the four stage
+     shapes of batch 32, aligned and shifted, with drop-path factors 0, 1
+     and 1/0.9: output and dx by max-abs error against the f32 plain
+     version, each parameter gradient by relative L2, each within 2 x the
+     bf16 plain version's error + 1e-2; ms per call beside the plain's;
+  9. kernels E and F (merger stack forward and backward) against their
+     plain version at N = 32 (forward) and N = 48 (forward and backward),
+     by the same rule: raw5, means and variances by max-abs; dx, dW, db,
+     dgamma and dbeta by relative L2 (the conv biases of layers 0..4 feed
+     a train-mode BatchNorm, so their true gradient is 0: their error is
+     taken relative to the same layer's dbeta);
+ 10. the training step of the full-width default config at batch 32, 1
+     view, through create_train_state / make_train_step: from one state
+     and one dropout seed, one step on three paths — bf16 with kernels,
+     bf16 plain (train kernels off), f32 plain (TF32 off); the kernel
+     path's loss within 2 x the bf16 plain path's distance from f32 +
+     LOSS_FLOOR, each module's gradient (relative L2) within 2 x +
+     GRAD_FLOOR; launch counts per step C 12, D 12, A 14, E 1, F 0.  Each
+     of the kernel path's 12 Swin-block calls is recorded (inputs, drop-
+     path factors, the gradient reaching its output, and what kernel D
+     sent back to each input) and held against the bf16 and f32 plain
+     blocks run on those same inputs: phase 8's rule, and each of the
+     step's gradients within STEP_VS_PLAIN (relative L2) of the bf16
+     plain block's.  A fourth path, f32 plain on images perturbed by
+     1e-3 relative noise, reads how far the gradients move with their
+     input alone (the network's sensitivity, which sets the bf16 paths'
+     distance from f32 in the encoder).  Then ten more steps on the
+     same batch and dropout masks: every loss finite, the last below the
+     first;
+ 11. one step at batch 16, 3 views (merger stack engaged: E 1, F 1), held
+     as in phase 10; the step's merger-stack call is recorded and held
+     against the plain stack on its inputs by phase 9's rule;
+ 12. training speed at batch 32, 1 view: step wall time over 20 steps, a
+     profiler breakdown of one step by kernel group with the busy share,
+     peak device memory.
 
 The weights use the "standard" init scheme: the reference scheme's x0.1
 convs and N(0, 0.001) linears make every output exactly 0.5, which would
 compare nothing.  The last two lines of stdout are the kernels' JSON and
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
+
+Each kernel's ``bound_ms`` is the larger of its FLOPs over the card's
+989 TFLOP/s (bf16 operands) and its bytes over 3.35 TB/s, at the calls of
+one main-path step: per serving forward for A and B, per 1-view train
+step for C, D and E, per 3-view train step for F; ``ms`` and
+``plain_ms`` cover the same calls.  Bytes are the function's own: each
+input read once and each output written once (weights included, vectors
+of C elements left out).  What one kernel saves for another (kernel C's
+intermediates for D) is not counted: that is the cost of saving instead
+of recomputing, reported beside the bound.  ``max_abs_err`` is the
+kernel's largest max-abs error against the f32 plain version (for the
+backward kernels, that of dx); ``rel_l2_err`` the largest relative L2
+error of its gradients, where it has any.
 """
 
 from __future__ import annotations
@@ -68,30 +118,53 @@ B_FLOOR = 1e-2
 VIEW3_MAX = 0.1
 VIEW3_MEAN = 5e-3
 SERVE_REQUESTS = 640  # 20 full batches per sustained run
+PEAK_BF16 = 989e12    # H100 SXM dense bf16, FLOP/s
+HBM = 3.35e12         # H100 SXM bytes/s
+DP_FACTORS = (0.0, 1.0, 1.0 / 0.9)  # drop-path factors of one image
+# |loss - f32 loss| allowed beyond 2 x the bf16 plain path's: the bf16
+# paths' loss distances from f32 read 2.80e-4 and 2.87e-4 at 1 view,
+# 3.6e-5 and 1.4e-5 at 3 views (H100, 700 W), so a bf16 plain path that
+# lands near f32 by chance still leaves room for the kernel path's own
+LOSS_FLOOR = 3e-4
+GRAD_FLOOR = 1e-2     # relative L2 allowed beyond 2 x bf16 plain's
+# a step's Swin-block gradients (relative L2) from the bf16 plain block's
+# on the same inputs: they read at most 5.65e-3 in the step and 4.78e-3
+# in phase 8 (H100, 700 W); a zero or sign-flipped gradient reads 1 or 2
+STEP_VS_PLAIN = 1.5e-2
+PERTURB = 1e-3        # relative noise on the images of the sensitivity path
+TRAIN_STEPS = 10
+SPEED_STEPS = 20
+TRAIN3 = (16, 3)      # (batch, views) of the merger-stack step: 48 volumes
 
 
 def log(*args) -> None:
     print(*args, flush=True)
 
 
-def time_pair(torch, plain, kernel, iters=10):
+def time_pair(torch, plain, kernel, iters=10, loops=3):
     """ms per call of plain and kernel, measured plain, kernel, kernel,
-    plain with CUDA events after a warm-up; each the mean of its two."""
+    plain after a warm-up: CUDA events around each of ``loops`` loops of
+    ``iters`` back-to-back calls (which keep the card's queue ahead of the
+    host), and the median of each one's 2 x ``loops`` loop means.  A host
+    stall inside one loop moves that loop's mean; the median leaves it
+    out."""
     def one(fn):
         for _ in range(2):
             fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(loops)]
+        for start, end in events:
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
+        return [start.elapsed_time(end) / iters for start, end in events]
 
     p1, k1, k2, p2 = one(plain), one(kernel), one(kernel), one(plain)
-    return (p1 + p2) / 2, (k1 + k2) / 2
+    return statistics.median(p1 + p2), statistics.median(k1 + k2)
 
 
 @contextlib.contextmanager
@@ -159,8 +232,14 @@ def layer_times(torch, model, x, repeats=5):
 
 KERNEL_GROUPS = (  # (group, substring), first match wins
     ("kernel A (rewindow)", "rewindow_kernel"),
-    ("kernel B attention", "attention_kernel"),
-    ("kernel B GEMMs", "gemm_kernel<"),
+    ("kernel D GEMMs", "swin_bwd_gemm"),
+    ("kernel D attention", "swin_bwd_attn"),
+    ("kernel D LayerNorm, sums", "swin_bwd_"),
+    ("kernel B/C attention", "attention_kernel"),
+    ("kernel B/C GEMMs", "gemm_kernel<"),
+    ("kernel E/F convs", "mstack_conv"),
+    ("kernel F weight grads", "mstack_wgrad"),
+    ("kernel E/F statistics", "mstack_"),
     ("host-to-device copy", "Memcpy HtoD"),
     ("device-to-host copy", "Memcpy DtoH"),
     ("cuDNN convolutions", "conv"),
@@ -169,17 +248,17 @@ KERNEL_GROUPS = (  # (group, substring), first match wins
 )
 
 
-def profile_predict(torch, predictor, batch):
-    """Device time by kernel group over one ``predict`` and the busy share
-    (device time / wall time).  Returns None if the profiler recorded no
-    device event."""
+def profile_call(torch, fn):
+    """Device time by kernel group over one call of ``fn`` (which ends in a
+    synchronize) and the busy share (device time / wall time).  Returns
+    None if the profiler recorded no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor.predict(batch)
+        fn()
         wall = (time.perf_counter() - t0) * 1e3
     groups = {}
     for e in prof.events():
@@ -237,6 +316,32 @@ def serve_sustained(server_cls, predictor, reqs, n_requests):
             "between_ms": statistics.median(
                 (spans[i + 1][0] - spans[i][1]) * 1e3
                 for i in range(len(spans) - 1))}
+
+def swin_calls(cfg):
+    """(fused block calls, rewindow calls) of one forward under ``cfg``:
+    12 and 7 for Swin-Tiny at 224^2 (a 7x7 stage runs unshifted)."""
+    blocks = rewindows = 0
+    for stage, depth in enumerate(cfg.NETWORK.SWIN_DEPTHS):
+        small = 56 >> stage <= 7
+        layout = "aligned"
+        for d in range(depth):
+            want = "shifted" if d % 2 and not small else "aligned"
+            rewindows += want != layout
+            layout = want
+            blocks += 1
+    return blocks, rewindows
+
+
+def train_launches(cfg, batch, views):
+    """Launches of kernels A, C, D, E, F in one train step."""
+    blocks, rewindows = swin_calls(cfg)
+    vols = batch * views
+    stack = vols % 16 == 0 and vols <= cfg.NETWORK.MERGER_STACK_MAX_VOLUMES
+    return {"rewindow": 2 * rewindows, "swin_block_train_forward": blocks,
+            "swin_block_train_backward": blocks,
+            "merger_stack_forward": int(stack),
+            "merger_stack_backward": int(stack and views > 1)}
+
 
 def check_rewindow(torch, rw, dev, report):
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -326,6 +431,479 @@ def check_swin_block(torch, blk, mask_fn, dev, report):
                                   "plain_ms": plain_ms, "shapes": shapes}
 
 
+
+def bound(flop, nbytes):
+    """(ms, "operations" or "bytes"): the least time for the work."""
+    t_ops, t_bytes = flop / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in float32 (0 when both are 0)."""
+    a, b = a.float(), b.float()
+    den = b.norm().item()
+    num = (a - b).norm().item()
+    return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+
+def time_grad(torch, out, inputs, dout):
+    """A callable running the backward of ``out`` (graph kept)."""
+    return lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True)
+
+
+# fused_swin_block_train's positional operands, and those with a gradient
+SWIN_ARGS = ("x", "dp1", "dp2", "ln1_scale", "ln1_bias", "wqkv", "bqkv",
+             "wproj", "bproj", "rel_bias", "mask", "ln2_scale", "ln2_bias",
+             "w1", "b1", "w2", "b2")
+SWIN_GRAD_ARGS = [i for i, n in enumerate(SWIN_ARGS)
+                  if n not in ("dp1", "dp2", "mask")]
+
+
+def swin_plain(torch, blk, args, heads, dout, f32):
+    """(output, gradients of SWIN_GRAD_ARGS) of the plain training block on
+    copies of ``args``: as given (bf16 plain), or all in float32 with TF32
+    off (f32 plain)."""
+    leaves = []
+    for i, a in enumerate(args):
+        if a is not None:
+            a = a.detach().clone()
+            a = a.float() if f32 else a
+            if i in SWIN_GRAD_ARGS:
+                a.requires_grad_(True)
+        leaves.append(a)
+    with exact_f32(torch) if f32 else contextlib.nullcontext():
+        out = blk.swin_block_train_reference(*leaves, num_heads=heads)
+        grads = torch.autograd.grad(out, [leaves[i] for i in SWIN_GRAD_ARGS],
+                                    dout.to(out.dtype))
+    return out.detach(), [g.detach() for g in grads]
+
+
+def hold_swin(name, kernel, plain, f32, worst, step_limit=None):
+    """Holds a training block's (output, gradients) from the kernels
+    against the bf16 plain and f32 plain blocks' on the same inputs, each
+    within 2 x the bf16 plain version's error + B_FLOOR: the output and
+    dx by max-abs, dx also by relative L2 ("dx rel", which does not
+    depend on the gradient's scale), every other gradient by relative
+    L2.  With ``step_limit``, every gradient also within that relative L2
+    of the bf16 plain block's.  Returns {what: (kernel vs f32, bf16 plain
+    vs f32, kernel vs bf16 plain)}."""
+    names = [SWIN_ARGS[i] for i in SWIN_GRAD_ARGS[1:]]
+    rows = ([("out", kernel[0], plain[0], f32[0]),
+             ("dx", kernel[1][0], plain[1][0], f32[1][0]),
+             ("dx rel", kernel[1][0], plain[1][0], f32[1][0])]
+            + list(zip(names, kernel[1][1:], plain[1][1:], f32[1][1:])))
+    errs = {}
+    for what, k, pl, rf in rows:
+        if what in ("out", "dx"):
+            ek = (k.float() - rf.float()).abs().max().item()
+            ep = (pl.float() - rf.float()).abs().max().item()
+            worst[what] = max(worst[what], ek)
+        else:
+            ek, ep = rel_l2(k, rf), rel_l2(pl, rf)
+            worst["grad_rel_l2"] = max(worst["grad_rel_l2"], ek)
+        kp = rel_l2(k, pl)
+        errs[what] = (ek, ep, kp)
+        if not np.isfinite(ek) or ek > 2 * ep + B_FLOOR:
+            raise AssertionError(f"train block {name} {what}: "
+                                 f"{ek} > 2 x {ep} + {B_FLOOR}")
+        if step_limit is not None and what != "out" and not kp <= step_limit:
+            raise AssertionError(f"train block {name} {what}: {kp} from "
+                                 f"the bf16 plain block's > {step_limit}")
+    return errs
+
+
+def check_swin_train(torch, blk, mask_fn, dev, report):
+    """Kernels C and D against the plain training block (phase 8)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    fac = torch.tensor(DP_FACTORS, device=dev)
+    tot = {"fwd_ms": 0.0, "fwd_plain_ms": 0.0, "bwd_ms": 0.0,
+           "bwd_plain_ms": 0.0, "fwd_flop": 0.0, "fwd_bytes": 0.0,
+           "bwd_flop": 0.0, "bwd_bytes": 0.0, "saved_bytes": 0.0}
+    worst = {"out": 0.0, "dx": 0.0, "grad_rel_l2": 0.0}
+    shapes = {}
+    for side, c, heads, n_aligned, n_shifted in STAGES:
+        per = (side // 7) ** 2
+        nw = BATCH * per
+
+        def r(*shape, s=1.0):
+            return torch.randn(*shape, device=dev, generator=g) * s
+
+        img = torch.arange(BATCH, device=dev)
+        f32 = [r(nw, 49, c), fac[img % 3].repeat_interleave(per),
+               fac[(img + 1) % 3].repeat_interleave(per),
+               1 + r(c, s=0.1), r(c, s=0.1),
+               r(c, 3 * c, s=c**-0.5), r(3 * c, s=0.1),
+               r(c, c, s=c**-0.5), r(c, s=0.1), r(heads, 49, 49, s=0.5),
+               None, 1 + r(c, s=0.1), r(c, s=0.1),
+               r(c, 4 * c, s=c**-0.5), r(4 * c, s=0.1),
+               r(4 * c, c, s=(4 * c)**-0.5), r(c, s=0.1)]
+        dout = r(nw, 49, c).bfloat16()
+        for shifted, count in ((False, n_aligned), (True, n_shifted)):
+            if count == 0:
+                continue
+            f32[10] = (torch.from_numpy(mask_fn(side, side, 7, 3)).to(dev)
+                       if shifted else None)
+            bf = [a.bfloat16() if i in (0, 5, 7, 13, 15) else a
+                  for i, a in enumerate(f32)]
+            akn = [a if a is None else a.detach().clone().requires_grad_(
+                i in SWIN_GRAD_ARGS) for i, a in enumerate(bf)]
+            got = blk.fused_swin_block_train(*akn, num_heads=heads)
+            ins_k = [akn[i] for i in SWIN_GRAD_ARGS]
+            gkn = torch.autograd.grad(got, ins_k, dout, retain_graph=True)
+            plain = swin_plain(torch, blk, bf, heads, dout, False)
+            ref = swin_plain(torch, blk, f32, heads, dout, True)
+            torch.cuda.synchronize()
+            name = f"{side}x{side}xC{c} {'shifted' if shifted else 'aligned'}"
+            errs = hold_swin(name, (got, list(gkn)), plain, ref, worst)
+            log(f"train block {name}: (kernel, bf16 plain) error vs f32, "
+                "kernel vs bf16 plain: " + ", ".join(
+                    f"{k} {a:.4g}/{b:.4g}/{d:.3g}"
+                    for k, (a, b, d) in errs.items()))
+            # timing: forward, and backward of a kept graph
+            apl = [a if a is None else a.detach().clone().requires_grad_(
+                i in SWIN_GRAD_ARGS) for i, a in enumerate(bf)]
+            fp, fk = time_pair(
+                torch,
+                lambda: blk.swin_block_train_reference(*apl, num_heads=heads),
+                lambda: blk.fused_swin_block_train(*akn, num_heads=heads),
+                iters=5)
+            out_p = blk.swin_block_train_reference(*apl, num_heads=heads)
+            bp, bk = time_pair(
+                torch, time_grad(torch, out_p,
+                                 [apl[i] for i in SWIN_GRAD_ARGS], dout),
+                time_grad(torch, got, ins_k, dout), iters=5)
+            tokens = nw * 49
+            # the function's own work: x in and out (bf16), the four bf16
+            # weights; backward: x and dout in, dx out, the weights in and
+            # their bf16 gradients out
+            ffl = tokens * (24 * c * c + 4 * 49 * c)
+            fby = tokens * 4 * c + 24 * c * c
+            bfl = tokens * (48 * c * c + 8 * 49 * c)
+            bby = tokens * 6 * c + 48 * c * c
+            shapes[name] = {"calls_per_step": count, "fwd_ms": fk,
+                            "fwd_plain_ms": fp, "bwd_ms": bk,
+                            "bwd_plain_ms": bp, "errors": errs,
+                            "fwd_bound_ms": bound(ffl, fby)[0],
+                            "bwd_bound_ms": bound(bfl, bby)[0]}
+            log(f"  C {fk:.4f} ms (plain {fp:.4f}), D {bk:.4f} ms (plain "
+                f"{bp:.4f}); {count}x per step")
+            # kernel C's saved intermediates (h1, qkv, ctx, h2, the GELU
+            # output in bf16; x2 and the pre-GELU values in f32; two LN
+            # statistics pairs): 40 bytes per token-channel + 16 per token
+            for key, v in (("fwd_ms", fk), ("fwd_plain_ms", fp),
+                           ("bwd_ms", bk), ("bwd_plain_ms", bp),
+                           ("fwd_flop", ffl), ("fwd_bytes", fby),
+                           ("bwd_flop", bfl), ("bwd_bytes", bby),
+                           ("saved_bytes", tokens * (40 * c + 16))):
+                tot[key] += count * v
+            del ref, plain, got, gkn, out_p, akn, apl
+    tot["fwd_bound_ms"], tot["fwd_bound_by"] = bound(tot["fwd_flop"],
+                                                      tot["fwd_bytes"])
+    tot["bwd_bound_ms"], tot["bwd_bound_by"] = bound(tot["bwd_flop"],
+                                                      tot["bwd_bytes"])
+    # saving (written by C, read by D) against recomputing the forward in D
+    tot["save_ms_at_hbm"] = 2 * tot["saved_bytes"] / HBM * 1e3
+    tot["recompute_ms_at_peak"] = tot["fwd_flop"] / PEAK_BF16 * 1e3
+    log(f"kernel C bound {tot['fwd_bound_ms']:.4f} ms ({tot['fwd_bound_by']})"
+        f", kernel D bound {tot['bwd_bound_ms']:.4f} ms "
+        f"({tot['bwd_bound_by']}) per step; C's saved intermediates "
+        f"{tot['saved_bytes'] / 1e9:.4f} GB per step: "
+        f"{tot['save_ms_at_hbm']:.4f} ms to write and read at the HBM rate, "
+        f"against {tot['recompute_ms_at_peak']:.4f} ms to recompute the "
+        "forward at the bf16 peak")
+    report["swin_block_train"] = {**tot, "worst": worst, "shapes": shapes}
+
+
+MERGER_GRADS = (["dx"] + [f"dW{i}" for i in range(6)]
+                + [f"db{i}" for i in range(6)]
+                + [f"dgamma{i}" for i in range(5)]
+                + [f"dbeta{i}" for i in range(5)])
+
+
+def merger_plain(torch, ms, x, params, dy, f32, backward=True):
+    """((raw5, means, vars), gradients of x and the 22 parameters or None)
+    of the plain stack on copies of its inputs: as given (bf16 plain) or
+    all float32 with TF32 off (f32 plain)."""
+    dt = torch.float32 if f32 else x.dtype
+    xx = x.detach().to(dt).clone().requires_grad_(backward)
+    ps = [q.detach().float().clone().requires_grad_(backward)
+          for q in params]
+    with exact_f32(torch) if f32 else contextlib.nullcontext():
+        y, m, v = ms.merger_stack_reference(xx, ps[:6], ps[6:12], ps[12:17],
+                                            ps[17:22])
+        grads = (torch.autograd.grad(y, [xx] + ps, dy.to(y.dtype))
+                 if backward else None)
+    return ((y.detach(), torch.cat(m).detach(), torch.cat(v).detach()),
+            None if grads is None else [g.detach() for g in grads])
+
+
+def hold_merger(name, kn, gkn, pl, gpl, f32, g32, worst):
+    """Holds the merger stack's (raw5, means, vars) by max-abs and its
+    gradients by relative L2 against the f32 plain stack's, each within
+    2 x the bf16 plain stack's error + B_FLOOR (a conv bias of layers
+    0..4 feeds a train-mode BatchNorm, so its true gradient is 0: its
+    error is taken relative to the same layer's dbeta)."""
+    errs = {}
+    for i, what in enumerate(("raw5", "means", "vars")):
+        ek = (kn[i].float() - f32[i].float()).abs().max().item()
+        ep = (pl[i].float() - f32[i].float()).abs().max().item()
+        errs[what] = (ek, ep)
+        worst["fwd_max_abs"] = max(worst["fwd_max_abs"], ek)
+        if not np.isfinite(ek) or ek > 2 * ep + B_FLOOR:
+            raise AssertionError(f"merger stack {name} {what}: "
+                                 f"{ek} > 2 x {ep} + {B_FLOOR}")
+    for i, what in enumerate(MERGER_GRADS if gkn is not None else ()):
+        k, p_, f = gkn[i], gpl[i], g32[i]
+        if what in ("db0", "db1", "db2", "db3", "db4"):
+            den = g32[18 + int(what[2:])].float().norm().item()
+            ek = (k.float() - f.float()).norm().item() / den
+            ep = (p_.float() - f.float()).norm().item() / den
+        else:
+            ek, ep = rel_l2(k, f), rel_l2(p_, f)
+        errs[what] = (ek, ep)
+        worst["bwd_rel_l2"] = max(worst["bwd_rel_l2"], ek)
+        if what == "dx":
+            worst["dx_max_abs"] = max(worst["dx_max_abs"], (
+                k.float() - f.float()).abs().max().item())
+        if not np.isfinite(ek) or ek > 2 * ep + B_FLOOR:
+            raise AssertionError(f"merger stack {name} {what}: "
+                                 f"{ek} > 2 x {ep} + {B_FLOOR}")
+    return errs
+
+
+def check_merger_stack(torch, ms, dev, report, sizes):
+    """Kernels E and F against the plain merger stack (phase 9) at
+    ``sizes``, (volumes, with backward) pairs."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    out = {}
+    worst = {"fwd_max_abs": 0.0, "bwd_rel_l2": 0.0, "dx_max_abs": 0.0}
+    for n, backward in sizes:
+        x = r(n, 32, 32, 32, 9).bfloat16()
+        params = ([r(3, 3, 3, ci, co, s=(27 * ci)**-0.5)
+                   for ci, co in ms.CHANNELS]
+                  + [r(co, s=0.1) for _, co in ms.CHANNELS]
+                  + [1 + r(9, s=0.1) for _ in range(5)]
+                  + [r(9, s=0.1) for _ in range(5)])
+        dy = r(n, 32, 32, 32, 1).bfloat16()
+        xk = x.clone().requires_grad_(backward)
+        psk = [q.clone().requires_grad_(backward) for q in params]
+        yk, mk, vk = ms.merger_stack(xk, psk[:6], psk[6:12], psk[12:17],
+                                     psk[17:22])
+        gkn = (torch.autograd.grad(yk, [xk] + psk, dy, retain_graph=True)
+               if backward else None)
+        pl, gpl = merger_plain(torch, ms, x, params, dy, False, backward)
+        f32, g32 = merger_plain(torch, ms, x.float(), params, dy, True,
+                                backward)
+        torch.cuda.synchronize()
+        errs = hold_merger(f"N={n}", (yk, torch.cat(mk), torch.cat(vk)),
+                           gkn, pl, gpl, f32, g32, worst)
+        log(f"merger stack N={n}: (kernel, bf16 plain) error vs f32: " +
+            ", ".join(f"{k} {a:.4g}/{b:.4g}" for k, (a, b) in errs.items()))
+        fp, fk = time_pair(
+            torch,
+            lambda: ms.merger_stack_reference(x, params[:6], params[6:12],
+                                              params[12:17], params[17:22]),
+            lambda: ms.merger_stack(x, params[:6], params[6:12],
+                                    params[12:17], params[17:22]), iters=5)
+        vox = n * 32**3
+        # the function's own bytes: x in (9 bf16 channels), raw5 out, the
+        # weights (17,739 values); backward: x and dy in, dx out, the
+        # weights in and their gradients out
+        entry = {"fwd_ms": fk, "fwd_plain_ms": fp, "errors": errs}
+        entry["fwd_bound_ms"], entry["fwd_bound_by"] = bound(
+            vox * 35478.0, vox * 20.0 + 17739 * 4)
+        if backward:
+            xp = x.clone().requires_grad_(True)
+            psp = [q.clone().requires_grad_(True) for q in params]
+            yp = ms.merger_stack_reference(xp, psp[:6], psp[6:12],
+                                           psp[12:17], psp[17:22])[0]
+            bp, bk = time_pair(
+                torch, time_grad(torch, yp, [xp] + psp, dy),
+                time_grad(torch, yk, [xk] + psk, dy), iters=3)
+            entry.update({"bwd_ms": bk, "bwd_plain_ms": bp})
+            entry["bwd_bound_ms"], entry["bwd_bound_by"] = bound(
+                vox * 2 * 35478.0, vox * 38.0 + 17739 * 8)
+            log(f"  E {fk:.4f} ms (plain {fp:.4f}), F {bk:.4f} ms (plain "
+                f"{bp:.4f})")
+            del xp, psp, yp
+        else:
+            log(f"  E {fk:.4f} ms (plain {fp:.4f})")
+        out[n] = entry
+        del f32, g32, pl, gpl, gkn, xk, psk, yk
+    report["merger_stack"] = {"worst": worst, "by_volumes": out}
+
+
+class Recorder:
+    """While active, replaces ``module.<attr>`` (a kernel wrapper that a
+    model module imported by name) with a pass-through that keeps each
+    call: copies of its tensor arguments and outputs, and the
+    gradients the step's backward sends into that output ("dout") and
+    out to each argument ("grads", keyed by argument position, or
+    (position, index) inside a list).  The wrapper runs and counts its
+    launches as before."""
+
+    def __init__(self, torch, module, attr):
+        self.torch, self.module, self.attr = torch, module, attr
+        self.fn = getattr(module, attr)
+        self.calls, self.handles = [], []
+
+    def __enter__(self):
+        def copy(a):
+            if isinstance(a, (list, tuple)):
+                return [copy(t) for t in a]
+            return a.detach().clone() if self.torch.is_tensor(a) else a
+
+        def keep(rec, key):
+            def hook(grad):
+                rec["grads"][key] = grad.detach().clone()
+            return hook
+
+        def wrapped(*args, **kw):
+            out = self.fn(*args, **kw)
+            first = out[0] if isinstance(out, tuple) else out
+            rec = {"kw": kw, "out": copy(out), "dout": None, "grads": {},
+                   "args": []}
+            for i, a in enumerate(args):
+                items = a if isinstance(a, (list, tuple)) else [a]
+                for j, t in enumerate(items):
+                    key = (i, j) if isinstance(a, (list, tuple)) else i
+                    if self.torch.is_tensor(t) and t.requires_grad:
+                        self.handles.append(t.register_hook(keep(rec, key)))
+                rec["args"].append(copy(a))
+            if first.requires_grad:
+                self.handles.append(first.register_hook(
+                    lambda g: rec.__setitem__("dout", g.detach().clone())))
+            self.calls.append(rec)
+            return out
+
+        setattr(self.module, self.attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.fn)
+        for h in self.handles:
+            h.remove()
+
+
+def hold_step_swin(torch, blk, calls, tag):
+    """Each of a step's recorded Swin-block calls (kernels C and D)
+    against the bf16 and f32 plain blocks on its own inputs, drop-path
+    factors and output gradient (``hold_swin`` with STEP_VS_PLAIN)."""
+    worst = {"out": 0.0, "dx": 0.0, "grad_rel_l2": 0.0}
+    vs_plain = []
+    for n, rec in enumerate(calls):
+        args, heads = rec["args"], rec["kw"]["num_heads"]
+        missing = [SWIN_ARGS[i] for i in SWIN_GRAD_ARGS
+                   if i not in rec["grads"]]
+        if rec["dout"] is None or missing:
+            raise AssertionError(f"{tag} block call {n}: no gradient "
+                                 f"reached {missing or 'its output'}")
+        step = (rec["out"], [rec["grads"][i] for i in SWIN_GRAD_ARGS])
+        plain = swin_plain(torch, blk, args, heads, rec["dout"], False)
+        ref = swin_plain(torch, blk, args, heads, rec["dout"], True)
+        errs = hold_swin(f"{tag} call {n}", step, plain, ref, worst,
+                         STEP_VS_PLAIN)
+        grads = {w: v for w, v in errs.items() if w != "out"}
+        vs_plain += [d for w, (_, _, d) in grads.items() if w != "dx"]
+        far = max((w for w in grads if w != "dx"),
+                  key=lambda w: grads[w][2])
+        dropped = float((args[1] == 0).float().mean()
+                        + (args[2] == 0).float().mean()) / 2
+        log(f"  {tag} Swin call {n} ({args[0].shape[0]} windows, C "
+            f"{args[0].shape[2]}, dropped-branch share {dropped:.3f}): "
+            f"out {errs['out'][0]:.4g}/{errs['out'][1]:.4g} and dx "
+            f"{errs['dx'][0]:.4g}/{errs['dx'][1]:.4g} (step, bf16 plain: "
+            f"max-abs vs f32); farthest from the bf16 plain block: {far} "
+            f"{grads[far][2]:.4g} (vs f32 {grads[far][0]:.4g}/"
+            f"{grads[far][1]:.4g})")
+    return {"calls": len(calls), "worst": worst,
+            "step_vs_bf16_plain_max": max(vs_plain),
+            "step_vs_bf16_plain_median": statistics.median(vs_plain)}
+
+
+def hold_step_merger(torch, ms, calls, tag):
+    """The step's recorded merger-stack call (kernel E, and F when a
+    gradient reached it) against the plain stack on its inputs and output
+    gradient, by phase 9's rule."""
+    worst = {"fwd_max_abs": 0.0, "bwd_rel_l2": 0.0, "dx_max_abs": 0.0}
+    if len(calls) != 1:
+        raise AssertionError(f"{tag}: {len(calls)} merger-stack calls "
+                             "recorded, want 1")
+    rec = calls[0]
+    x, lists = rec["args"][0], rec["args"][1:5]
+    params = [t for lst in lists for t in lst]
+    keys = [0] + [(i, j) for i in range(1, 5)
+                  for j in range(len(lists[i - 1]))]
+    backward = rec["dout"] is not None  # the 1-view stack runs no_grad
+    missing = [k for k in keys if k not in rec["grads"]]
+    if backward and missing:
+        raise AssertionError(f"{tag}: no gradient reached {missing}")
+    dy = rec["dout"] if backward else rec["out"][0]
+    pl, gpl = merger_plain(torch, ms, x, params, dy, False, backward)
+    f32, g32 = merger_plain(torch, ms, x, params, dy, True, backward)
+    raw5, means, vars_ = rec["out"]
+    step = (raw5, torch.cat(means), torch.cat(vars_))
+    errs = hold_merger(tag, step, [rec["grads"][k] for k in keys]
+                       if backward else None, pl, gpl, f32, g32, worst)
+    log(f"  {tag} merger-stack call ({x.shape[0]} volumes): (step, bf16 "
+        "plain) error vs f32: " + ", ".join(
+            f"{k} {a:.4g}/{b:.4g}" for k, (a, b) in errs.items()))
+    return {"worst": worst, "errors": errs}
+
+
+def library_rewindow(torch, rw, dev):
+    """ms per serving forward of one ``index_select`` of the token rows by
+    a precomputed permutation (kernel A's library yardstick)."""
+    total = 0.0
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for side, c, sign, count in REWINDOW_CALLS:
+        nw = side // 7
+        x = torch.randn(BATCH * nw * nw, 49, c, device=dev,
+                        generator=g).bfloat16()
+        idx = torch.arange(x.shape[0] * 49, device=dev, dtype=torch.float32)
+        perm = rw.rewindow_reference(idx.view(-1, 49, 1), nw, nw, 7, 3,
+                                     sign).reshape(-1).long()
+        flat = x.view(-1, c)
+        if not torch.equal(torch.index_select(flat, 0, perm).view_as(x),
+                           rw.rewindow(x, nw, nw, 7, 3, sign)):
+            raise AssertionError("index_select yardstick != rewindow")
+        ms_, _ = time_pair(torch, lambda: torch.index_select(flat, 0, perm),
+                           lambda: torch.index_select(flat, 0, perm))
+        total += count * ms_
+    return total
+
+
+GRAD_GROUPS = {  # reported group: parameter-name prefixes
+    "encoder": ("encoder.",), "decoder": ("decoder.",),
+    "merger": ("merger.",), "refiner": ("refiner.",),
+    "encoder.resnet": ("encoder.resnet.", "encoder.resnet_reduce."),
+    "encoder.swin": ("encoder.swin.",),
+    "encoder.stage maps": ("encoder.swin_",),
+    "encoder.cross_view": ("encoder.cross_view_attention.",),
+    "encoder.fusion": ("encoder.fusion_", "encoder.layer"),
+}
+MODULES = ("encoder", "decoder", "merger", "refiner")
+
+
+def grad_distance(torch, grads, ref, names):
+    """Per group of GRAD_GROUPS: relative L2 distance of the concatenated
+    gradients, and the median over its tensors of each one's relative
+    L2."""
+    out = {}
+    for mod, prefixes in GRAD_GROUPS.items():
+        keys = [n for n in names if n.startswith(prefixes)]
+        a = torch.cat([grads[k].float().reshape(-1) for k in keys])
+        b = torch.cat([ref[k].float().reshape(-1) for k in keys])
+        out[mod] = {"rel_l2": rel_l2(a, b), "norm": b.norm().item(),
+                    "median_tensor_rel_l2": statistics.median(
+                        rel_l2(grads[k], ref[k]) for k in keys)}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -336,11 +914,16 @@ def main() -> int:
     from swinvox_tpu_torch.config import default_config
     from swinvox_tpu_torch.infer import Predictor
     from swinvox_tpu_torch.kernels import build
+    from swinvox_tpu_torch.models import merger as merger_mod
+    from swinvox_tpu_torch.models import swin as swin_mod
     from swinvox_tpu_torch.models.swin import shifted_window_mask
     from swinvox_tpu_torch.models.swinvox import SwinVoxModel
+    from swinvox_tpu_torch.ops import pallas_merger_stack as ms
     from swinvox_tpu_torch.ops import pallas_swin_block as blk
     from swinvox_tpu_torch.ops import rewindow as rw
     from swinvox_tpu_torch.serve import BatchingServer
+    from swinvox_tpu_torch.train.state import create_train_state, module_params
+    from swinvox_tpu_torch.train.steps import gradients, make_train_step
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -405,10 +988,12 @@ def main() -> int:
         f"launches {launches}")
     if stats["requests"] != len(reqs) or batches < 1:
         raise AssertionError(f"server stats {stats}")
-    if launches != {"rewindow": 7 * batches,
-                    "fused_swin_block": 12 * batches}:
+    n_blocks, n_rw = swin_calls(cfg)
+    if launches != {"rewindow": n_rw * batches,
+                    "fused_swin_block": n_blocks * batches}:
         raise AssertionError(f"launch counts {launches} for {batches} "
-                             "batch(es): want 7 and 12 per batch")
+                             f"batch(es): want {n_rw} and {n_blocks} per "
+                             "batch")
     batch = np.stack(reqs)
     direct = predictor.predict(batch)
     for out in outs:
@@ -478,7 +1063,7 @@ def main() -> int:
         f"{det_ms:.3f}, default algorithms {default_ms:.3f}")
     log("device ms per forward (CUDA events, median of 5): " + ", ".join(
         f"{k} {v:.3f}" for k, v in speed["layer_device_ms"].items()))
-    prof = profile_predict(torch, predictor, batch)
+    prof = profile_call(torch, lambda: predictor.predict(batch))
     speed["profile_one_predict"] = prof
     if prof is None:
         log("profiler: no device events recorded; breakdown not measured")
@@ -503,22 +1088,274 @@ def main() -> int:
                     f"{r['predict_ms']:.2f} / {r['between_ms']:.2f}"
                     for r in runs) + f"; on {card}")
 
+
+    # ---- 8./9. training kernels against their plain versions -------------
+    check_swin_train(torch, blk, shifted_window_mask, dev, report)
+    n1, n3 = BATCH, TRAIN3[0] * TRAIN3[1]
+    check_merger_stack(torch, ms, dev, report, ((n1, False), (n3, True)))
+    report["rewindow"]["library_ms"] = library_rewindow(torch, rw, dev)
+
+    # ---- 10. the training step, batch 32, 1 view, three paths -------------
+    del predictor, model
+    torch.cuda.empty_cache()
+    cfgs = {"kernels": default_config()}
+    cfgs["bf16 plain"] = default_config()
+    cfgs["bf16 plain"].NETWORK.USE_PALLAS_SWIN_BLOCK_TRAIN = False
+    cfgs["bf16 plain"].NETWORK.USE_MERGER_STACK = False
+    cfgs["f32 plain"] = default_config()
+    cfgs["f32 plain"].NETWORK.USE_PALLAS_SWIN_BLOCK_TRAIN = False
+    cfgs["f32 plain"].NETWORK.USE_MERGER_STACK = False
+    cfgs["f32 plain"].NETWORK.COMPUTE_DTYPE = "float32"
+    paths = {}
+    for name, c in cfgs.items():
+        c.NETWORK.INIT_SCHEME = "standard"
+        st, opts = create_train_state(c, torch.Generator().manual_seed(SEED),
+                                      device=dev)
+        paths[name] = (st, opts, make_train_step(st.model, opts))
+    net = cfgs["kernels"].NETWORK
+    if not (net.COMPUTE_DTYPE == "bfloat16" and net.USE_PALLAS_SWIN_BLOCK_TRAIN
+            and net.USE_REWINDOW_CHAIN and net.USE_MERGER_STACK):
+        raise AssertionError("the default config no longer trains bf16 "
+                             "through kernels A, C, D and E")
+    state0 = {k: v.detach().clone()
+              for k, v in paths["kernels"][0].model.state_dict().items()}
+    n_train = sum(p.numel() for p in paths["kernels"][0].model.parameters())
+    counters = {"rewindow": rw.rewindow,
+                "swin_block_train_forward": blk.swin_block_train_forward,
+                "swin_block_train_backward": blk.swin_block_train_backward,
+                "merger_stack_forward": ms.merger_stack_forward,
+                "merger_stack_backward": ms.merger_stack_backward}
+
+    def reset_paths(names=None):
+        for name in names or paths:
+            st, opts, _ = paths[name]
+            st.model.load_state_dict(state0)
+            st.opt_states = {k: opts[k].init(module_params(st.model, k))
+                             for k in opts}
+            st.step = 0
+
+    def one_step(name, images, volumes, count=False):
+        """One step on a path; with ``count``, from launch counters at 0,
+        recording the kernel wrappers' calls (Recorder)."""
+        st, _, step = paths[name]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        if count:
+            for f in counters.values():
+                f.launches = 0
+        ctx = exact_f32(torch) if name == "f32 plain" else \
+            contextlib.nullcontext()
+        with ctx, contextlib.ExitStack() as stack:
+            recs = [stack.enter_context(Recorder(torch, mod, attr))
+                    for mod, attr in ((swin_mod, "fused_swin_block_train"),
+                                      (merger_mod, "merger_stack"))
+                    ] if count else []
+            _, metrics = step(st, images, volumes, gen)
+            torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+        return ({k: float(v) for k, v in metrics.items()},
+                gradients(st.model), launches, [r.calls for r in recs])
+
+    def compare(tag, images, volumes, want):
+        reset_paths()
+        res = {name: one_step(name, images, volumes, count=name == "kernels")
+               for name in paths}
+        launches = res["kernels"][2]
+        names = [n for n, _ in paths["kernels"][0].model.named_parameters()]
+        gk = grad_distance(torch, res["kernels"][1], res["f32 plain"][1],
+                           names)
+        gp = grad_distance(torch, res["bf16 plain"][1], res["f32 plain"][1],
+                           names)
+        # sensitivity: f32 plain again, on images moved by PERTURB
+        reset_paths(["f32 plain"])
+        noise = np.random.default_rng(SEED + 9).standard_normal(
+            images.shape).astype(np.float32)
+        pert = one_step("f32 plain", images * (1 + PERTURB * noise), volumes)
+        gs = grad_distance(torch, pert[1], res["f32 plain"][1], names)
+        # the step's Swin-block gradients, tensor by tensor, kernel path
+        # against bf16 plain path
+        sw_names = [n for n in names if n.startswith("encoder.swin.stage")]
+        sw_kp = [rel_l2(res["kernels"][1][n], res["bf16 plain"][1][n])
+                 for n in sw_names]
+        loss = {name: r[0]["total_loss"] for name, r in res.items()}
+        dk = abs(loss["kernels"] - loss["f32 plain"])
+        dp = abs(loss["bf16 plain"] - loss["f32 plain"])
+        log(f"{tag}: total loss kernels {loss['kernels']:.6f}, bf16 plain "
+            f"{loss['bf16 plain']:.6f}, f32 plain {loss['f32 plain']:.6f} "
+            f"(|kernels - f32| {dk:.3g} <= 2 x {dp:.3g} + {LOSS_FLOOR}), "
+            f"f32 plain on images x (1 + {PERTURB} noise) "
+            f"{pert[0]['total_loss']:.6f}; grad rel L2 vs f32, group "
+            "(median tensor), kernels / bf16 plain / f32 on perturbed "
+            "images: " + ", ".join(
+                f"{m} {gk[m]['rel_l2']:.4g} "
+                f"({gk[m]['median_tensor_rel_l2']:.3g})/{gp[m]['rel_l2']:.4g} "
+                f"({gp[m]['median_tensor_rel_l2']:.3g})/{gs[m]['rel_l2']:.4g} "
+                f"({gs[m]['median_tensor_rel_l2']:.3g})"
+                for m in gk) + f"; Swin-block tensors, kernels vs bf16 "
+            f"plain: median {statistics.median(sw_kp):.4g}, max "
+            f"{max(sw_kp):.4g} over {len(sw_kp)}; launches {launches}")
+        swin_calls_, merger_calls = res["kernels"][3]
+        held = {"swin": hold_step_swin(torch, blk, swin_calls_, tag),
+                "merger": hold_step_merger(torch, ms, merger_calls, tag)}
+        for name, r in res.items():
+            if not all(np.isfinite(v) for v in r[0].values()):
+                raise AssertionError(f"{tag} {name}: loss not finite {r[0]}")
+        if dk > 2 * dp + LOSS_FLOOR:
+            raise AssertionError(f"{tag}: loss {dk} > 2 x {dp} + {LOSS_FLOOR}")
+        for m in MODULES:
+            if gk[m]["rel_l2"] > 2 * gp[m]["rel_l2"] + GRAD_FLOOR:
+                raise AssertionError(f"{tag}: {m} grads {gk[m]['rel_l2']} > "
+                                     f"2 x {gp[m]['rel_l2']} + {GRAD_FLOOR}")
+        if launches != want["launches"]:
+            raise AssertionError(f"{tag}: launches {launches} != "
+                                 f"{want['launches']}")
+        return {"loss": loss, "loss_f32_perturbed": pert[0]["total_loss"],
+                "grad_rel_l2_kernels": gk, "grad_rel_l2_bf16_plain": gp,
+                "grad_rel_l2_f32_perturbed": gs,
+                "swin_tensors_kernels_vs_bf16_plain": {
+                    "median": statistics.median(sw_kp), "max": max(sw_kp),
+                    "n": len(sw_kp)},
+                "held_calls": held, "launches": launches,
+                "metrics": {k: r[0] for k, r in res.items()}}, res
+
+    rng = np.random.default_rng(SEED)
+    img1 = rng.standard_normal((BATCH, 1, 224, 224, 3)).astype(np.float32)
+    vol1 = (rng.random((BATCH, 32, 32, 32)) < 0.3).astype(np.uint8)
+    want1 = {"launches": train_launches(cfgs["kernels"], BATCH, 1)}
+    train1, res1 = compare(f"train step B={BATCH} 1 view", img1, vol1,
+                           want1)
+    mg = [v for k, v in res1["kernels"][1].items() if k.startswith("merger.")]
+    if any(bool(t.any()) for t in mg):
+        raise AssertionError("1-view merger gradient is not exactly zero")
+    del res1
+    losses = [train1["loss"]["kernels"]]
+    for _ in range(TRAIN_STEPS):
+        losses.append(one_step("kernels", img1, vol1)[0]["total_loss"])
+    log(f"kernel path, {TRAIN_STEPS} more steps on the same batch and masks:"
+        f" losses {', '.join(f'{v:.6f}' for v in losses)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training does not reduce the loss: {losses}")
+    train1["losses"] = losses
+    report["train_1view"] = train1
+
+    # ---- 11. batch 16, 3 views: the merger stack forward and backward -----
+    b3, v3 = TRAIN3
+    img3 = rng.standard_normal((b3, v3, 224, 224, 3)).astype(np.float32)
+    vol3 = (rng.random((b3, 32, 32, 32)) < 0.3).astype(np.uint8)
+    want3 = {"launches": train_launches(cfgs["kernels"], b3, v3)}
+    train3, res3 = compare(f"train step B={b3} {v3} views", img3, vol3,
+                           want3)
+    del res3
+    report["train_3view"] = train3
+    for name in ("bf16 plain", "f32 plain"):
+        del paths[name]
+    torch.cuda.empty_cache()
+
+    # ---- 12. training speed, batch 32, 1 view -------------------------------
+    st, _, step = paths["kernels"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    img_dev = torch.from_numpy(img1).to(dev)
+    vol_dev = torch.from_numpy(vol1).to(dev)
+    for _ in range(3):
+        step(st, img_dev, vol_dev, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(SPEED_STEPS):
+        t0 = time.perf_counter()
+        step(st, img_dev, vol_dev, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tspeed = {"step_ms": summary(times),
+              "img_per_s": BATCH / (statistics.median(times) / 1e3),
+              "peak_mem_gb": peak}
+    tprof = profile_call(torch, lambda: (step(st, img_dev, vol_dev, gen),
+                                         torch.cuda.synchronize()))
+    tspeed["profile_one_step"] = tprof
+    report["train_speed"] = tspeed
+    log(f"train step batch {BATCH}, 1 view, wall ms (median, min-max of "
+        f"{SPEED_STEPS}): {tspeed['step_ms']['median']:.3f} ({min(times):.3f}"
+        f"-{max(times):.3f}), {tspeed['img_per_s']:.1f} img/s, peak memory "
+        f"{peak:.2f} GB; {n_train} params; on {card}")
+    sw, mst = report["swin_block_train"], report["merger_stack"]["by_volumes"]
+    log(f"kernel device ms per step, kernel (plain): C {sw['fwd_ms']:.3f} "
+        f"({sw['fwd_plain_ms']:.3f}), D {sw['bwd_ms']:.3f} "
+        f"({sw['bwd_plain_ms']:.3f}), E {mst[n1]['fwd_ms']:.3f} "
+        f"({mst[n1]['fwd_plain_ms']:.3f}) at N={n1}, F "
+        f"{mst[n3]['bwd_ms']:.3f} ({mst[n3]['bwd_plain_ms']:.3f}) at N={n3}")
+    if tprof is None:
+        log("profiler: no device events recorded; breakdown not measured")
+    else:
+        log(f"profiler over one step: wall {tprof['wall_ms']:.3f} ms, device "
+            f"{tprof['device_ms']:.3f} ms, busy share "
+            f"{tprof['busy_share']:.3f}; " + ", ".join(
+                f"{k} {v:.3f}" for k, v in tprof["groups_ms"].items()))
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     kernels = []
-    for name, src, replaces in (
+    t1, t3 = train1["launches"], train3["launches"]
+    a_bound = bound(0.0, sum(4 * BATCH * (sd // 7) ** 2 * 49 * c * n
+                             for sd, c, _, n in REWINDOW_CALLS))
+    b_flop = b_bytes = 0.0
+    for sd, c, _, na, nsh in STAGES:
+        tokens = BATCH * (sd // 7) ** 2 * 49
+        b_flop += (na + nsh) * tokens * (24 * c * c + 4 * 49 * c)
+        b_bytes += (na + nsh) * (tokens * 4 * c + 24 * c * c)
+    rows = (
         ("rewindow", "swinvox_tpu_torch/csrc/rewindow.cu",
-         "swinvox_tpu/ops/rewindow.py:71"),
+         "swinvox_tpu/ops/rewindow.py:71",
+         launches["rewindow"] + t1["rewindow"] + t3["rewindow"],
+         report["rewindow"]["max_abs_err"], None, report["rewindow"]["ms"],
+         report["rewindow"]["plain_ms"], a_bound,
+         report["rewindow"]["library_ms"]),
         ("fused_swin_block", "swinvox_tpu_torch/csrc/swin_block.cu",
-         "swinvox_tpu/ops/pallas_swin_block.py:58"),
-    ):
-        r = report[name]
+         "swinvox_tpu/ops/pallas_swin_block.py:58",
+         launches["fused_swin_block"],
+         report["fused_swin_block"]["max_abs_err"], None,
+         report["fused_swin_block"]["ms"],
+         report["fused_swin_block"]["plain_ms"], bound(b_flop, b_bytes), None),
+        ("swin_block_train_forward", "swinvox_tpu_torch/csrc/swin_block.cu",
+         "swinvox_tpu/ops/pallas_swin_block.py:400",
+         t1["swin_block_train_forward"] + t3["swin_block_train_forward"],
+         sw["worst"]["out"], None, sw["fwd_ms"], sw["fwd_plain_ms"],
+         (sw["fwd_bound_ms"], sw["fwd_bound_by"]), None),
+        ("swin_block_train_backward",
+         "swinvox_tpu_torch/csrc/swin_block_train.cu",
+         "swinvox_tpu/ops/pallas_swin_block.py:508",
+         t1["swin_block_train_backward"] + t3["swin_block_train_backward"],
+         sw["worst"]["dx"], sw["worst"]["grad_rel_l2"], sw["bwd_ms"],
+         sw["bwd_plain_ms"],
+         (sw["bwd_bound_ms"], sw["bwd_bound_by"]), None),
+        ("merger_stack_forward", "swinvox_tpu_torch/csrc/merger_stack.cu",
+         "swinvox_tpu/ops/pallas_merger_stack.py:209",
+         t1["merger_stack_forward"] + t3["merger_stack_forward"],
+         report["merger_stack"]["worst"]["fwd_max_abs"], None,
+         mst[n1]["fwd_ms"],
+         mst[n1]["fwd_plain_ms"],
+         (mst[n1]["fwd_bound_ms"], mst[n1]["fwd_bound_by"]), None),
+        ("merger_stack_backward", "swinvox_tpu_torch/csrc/merger_stack.cu",
+         "swinvox_tpu/ops/pallas_merger_stack.py:386",
+         t1["merger_stack_backward"] + t3["merger_stack_backward"],
+         report["merger_stack"]["worst"]["dx_max_abs"],
+         report["merger_stack"]["worst"]["bwd_rel_l2"], mst[n3]["bwd_ms"],
+         mst[n3]["bwd_plain_ms"],
+         (mst[n3]["bwd_bound_ms"], mst[n3]["bwd_bound_by"]), None),
+    )
+    for (name, src, replaces, n, err, rel, k_ms, p_ms, (b_ms, b_by),
+         lib_ms) in rows:
+        if n < 1:
+            raise AssertionError(f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "replaces": replaces, "launches": n,
+                        "max_abs_err": err, "rel_l2_err": rel,
+                        "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms})
+    report["kernels"] = kernels
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

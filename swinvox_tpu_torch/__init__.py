@@ -1,17 +1,23 @@
-"""swinvox_tpu_torch — the serving path of swinvox_tpu in PyTorch + CUDA.
+"""swinvox_tpu_torch — swinvox_tpu's serving path and training step in
+PyTorch + CUDA.
 
 A port of the JAX package ``swinvox_tpu`` for one NVIDIA H100 (Hopper,
 sm_90a).  The JAX package stays the reference: every module here has a
 counterpart at the same relative path there, and the tests feed both the
 same weights and inputs.
 
-  * ``models/``  — ``SwinVoxModel`` and its parts, inference only;
-  * ``ops/``     — the window-attention core and the two hand-written
-                   kernels of the serving path (``rewindow``, the fused
-                   Swin block), each beside its plain PyTorch version;
+  * ``models/``  — ``SwinVoxModel`` and its parts, inference and training;
+  * ``ops/``     — the window-attention core, the losses and the
+                   hand-written kernels (``rewindow``, the fused Swin block
+                   for inference and training, the merger stack), each
+                   beside its plain PyTorch version;
   * ``kernels/`` — builds ``csrc/*.cu`` with nvcc at first use;
-  * ``convert``  — loads the JAX package's ``{"params", "batch_stats"}``;
-  * ``config``   — the serving fields of the JAX package's ``Config``;
+  * ``train/``   — per-module optimizers, ``TrainState``,
+                   ``create_train_state`` and ``make_train_step``;
+  * ``convert``  — loads the JAX package's ``{"params", "batch_stats"}``
+                   and its whole ``TrainState``;
+  * ``config``   — the serving and training fields of the JAX package's
+                   ``Config``;
   * ``data``     — image files in (eval transform), binvox out;
   * ``infer``    — ``Predictor``;
   * ``serve``    — ``BatchingServer``, micro-batching around a predictor.

@@ -18,6 +18,11 @@ kernels are spatially flipped and laid out (in, out, *k) (the JAX
 transposed conv does not flip, torch's does); the encoder's [C, H, W]
 ``LayerNorm`` affine comes from [H, W, C].  Any leaf left over or missing,
 on either side, raises.
+
+``load_jax_train_state`` carries a whole JAX ``TrainState`` across: the
+variables as above, each module's optimizer state (Adam's ``mu``, ``nu``
+and ``count``, or SGD's ``trace``, laid out as the parameters they
+shadow) and the step, so both packages can continue from one state.
 """
 
 from __future__ import annotations
@@ -93,3 +98,45 @@ def load_jax_variables(model: nn.Module,
                 raise ValueError(f"{flax_path}: shape {arr.shape} does not "
                                  f"fit {name} {tuple(tensor.shape)}")
             tensor.copy_(torch.from_numpy(arr.copy()))  # copy: drops flips
+
+
+def tree_to_torch(tree: Mapping, model: nn.Module, prefix: Tuple[str, ...] = ()
+                  ) -> Dict[str, torch.Tensor]:
+    """A parameter-shaped flax tree (gradients, optimizer moments) as torch
+    tensors by the port's parameter names, in the port's layout;
+    ``prefix`` is the tree's path in the flax params (e.g. a module)."""
+    out = {}
+    for path, leaf in _flatten(tree, prefix):
+        name = torch_name(path)
+        owner_name, _, leaf_name = name.rpartition(".")
+        arr = to_torch_layout(model.get_submodule(owner_name), leaf_name,
+                              np.asarray(leaf))
+        out[name] = torch.from_numpy(arr.copy())
+    return out
+
+
+def load_jax_train_state(state, jax_state) -> None:
+    """Copies a JAX ``TrainState`` (params, batch_stats, per-module optax
+    states, step; leaves as arrays) into the port's ``TrainState``."""
+    model = state.model
+    load_jax_variables(model, {"params": jax_state.params,
+                               "batch_stats": jax_state.batch_stats})
+    for module, opt in jax_state.opt_states.items():
+        if module not in state.opt_states:
+            raise ValueError(f"no optimizer state for module {module!r}")
+        ours = state.opt_states[module]
+        # the optax chain's states: (clip, decay, adam-or-trace)
+        inner = next(s for s in opt if hasattr(s, "mu") or hasattr(s, "trace"))
+        kinds = ("mu", "nu") if hasattr(inner, "mu") else ("trace",)
+        for kind in kinds:
+            src = tree_to_torch(getattr(inner, kind), model, (module,))
+            dst = ours[kind]
+            if set(src) != set(dst):
+                raise ValueError(f"{module}.{kind}: moment names do not "
+                                 "match the port's parameters")
+            with torch.no_grad():
+                for name, t in dst.items():
+                    t.copy_(src[name])
+        if hasattr(inner, "count"):
+            ours["count"] = int(np.asarray(inner.count))
+    state.step = int(np.asarray(jax_state.step))

@@ -45,7 +45,20 @@
 // one 64x64 tile per 128-thread block).  Fusing into one launch, wgmma
 // and TMA are later work.
 //
-// The C entry point returns the first nonzero cudaGetLastError() of its
+// Kernel C, the training forward (replaces
+// pallas_swin_block.py:_swin_block_train_fwd_kernel through
+// `fused_swin_block_train`), is the same five launches with two
+// additions: per-window stochastic-depth factors dp1/dp2 [nW] f32 scale
+// the two residual branches in the PROJ and FC2 epilogues
+// (x2 = x + dp1 * attn, out = x2 + dp2 * mlp), and the launches save what
+// kernel D (swin_block_train.cu) reads: the bf16 LN1/LN2 outputs and
+// their row mean and 1/std (written by the column-0 blocks of the QKV and
+// FC1 launches, which load every column of their rows), qkv, ctx, f32 x2,
+// the f32 pre-GELU values and the bf16 GELU output.  Saving instead of
+// recomputing costs 40 bytes per token-channel (~1.8 GB for the 12
+// block calls of a batch-32 step) and no FLOPs.
+//
+// The C entry points return the first nonzero cudaGetLastError() of their
 // launches.
 
 #include <cuda_bf16.h>
@@ -79,6 +92,12 @@ struct GemmArgs {
   void* out;            // QKV/FC1/FC2: bf16 [M,N]; PROJ: f32 [M,N]
   int m, n, k;
   float eps;
+  // training only (null at inference):
+  const float* dp;      // PROJ/FC2: branch factor per window of `tokens` rows
+  int tokens;
+  bf16* h_save;         // QKV/FC1: the bf16 LN output [M,K]
+  float* stats_save;    // QKV/FC1: row mean and 1/std [M,2]
+  float* pre_save;      // FC1: f32 pre-GELU values [M,N]
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -111,7 +130,8 @@ constexpr size_t GEMM_SMEM_BYTES =
 // A-tile loads then read a third time from L2).
 template <typename T>
 __device__ void ln_stats(const T* __restrict__ x, float* mu, float* rs,
-                         int m0, int M, int K, float eps) {
+                         int m0, int M, int K, float eps,
+                         float* __restrict__ save) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
     const int gm = m0 + r;
@@ -132,6 +152,10 @@ __device__ void ln_stats(const T* __restrict__ x, float* mu, float* rs,
     if (lane == 0) {
       mu[r] = m;
       rs[r] = r_std;
+      if (save) {
+        save[2 * (size_t)gm] = m;
+        save[2 * (size_t)gm + 1] = r_std;
+      }
     }
   }
 }
@@ -156,7 +180,7 @@ __device__ void load_ln_tile(const T* __restrict__ x,
                              const float* __restrict__ s,
                              const float* __restrict__ b, const float* mu,
                              const float* rs, bf16* As, int lda, int m0,
-                             int k0, int M, int K) {
+                             int k0, int M, int K, bf16* __restrict__ save) {
   for (int i = threadIdx.x; i < BM * BK / 8; i += GEMM_THREADS) {
     const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
     const int gm = m0 + r;
@@ -174,6 +198,9 @@ __device__ void load_ln_tile(const T* __restrict__ x,
     }
     *reinterpret_cast<uint4*>(As + r * lda + c) =
         *reinterpret_cast<const uint4*>(packed);
+    if (save && gm < M)
+      *reinterpret_cast<uint4*>(save + (size_t)gm * K + k0 + c) =
+          *reinterpret_cast<const uint4*>(packed);
   }
 }
 
@@ -193,10 +220,16 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   const int tid = threadIdx.x, warp = tid / 32;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
 
+  // the column-0 blocks load every column of their rows: they save them
+  const bool saver = blockIdx.x == 0;
+  float* stats_save = saver ? g.stats_save : nullptr;
+  bf16* h_save = saver ? g.h_save : nullptr;
   if (MODE == QKV)
-    ln_stats(static_cast<const bf16*>(g.a), row_mu, row_rs, m0, M, K, g.eps);
+    ln_stats(static_cast<const bf16*>(g.a), row_mu, row_rs, m0, M, K, g.eps,
+             stats_save);
   if (MODE == FC1)
-    ln_stats(static_cast<const float*>(g.a), row_mu, row_rs, m0, M, K, g.eps);
+    ln_stats(static_cast<const float*>(g.a), row_mu, row_rs, m0, M, K, g.eps,
+             stats_save);
   if (kLN) __syncthreads();
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -209,10 +242,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   for (int k0 = 0; k0 < K; k0 += BK) {
     if (MODE == QKV)
       load_ln_tile(static_cast<const bf16*>(g.a), g.ln_s, g.ln_b, row_mu,
-                   row_rs, As, lda, m0, k0, M, K);
+                   row_rs, As, lda, m0, k0, M, K, h_save);
     if (MODE == FC1)
       load_ln_tile(static_cast<const float*>(g.a), g.ln_s, g.ln_b, row_mu,
-                   row_rs, As, lda, m0, k0, M, K);
+                   row_rs, As, lda, m0, k0, M, K, h_save);
     if (!kLN) {
       const bf16* A = static_cast<const bf16*>(g.a);
       for (int i = tid; i < BM * BK / 8; i += GEMM_THREADS) {
@@ -269,17 +302,24 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
     float v[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = Cs[r * ldc + c + e] + g.bias[gn + e];
+    const float dpw = g.dp ? g.dp[gm / g.tokens] : 1.f;
     if (MODE == PROJ) {
       const bf16* res = static_cast<const bf16*>(g.resid) + o;
       float* dst = static_cast<float*>(g.out) + o;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(res[e]) + v[e];
+      for (int e = 0; e < 8; ++e)
+        dst[e] = __bfloat162float(res[e]) + dpw * v[e];
     } else {
       alignas(16) bf16 packed[8];
       if (MODE == QKV) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) packed[e] = __float2bfloat16(v[e]);
       } else if (MODE == FC1) {
+        if (g.pre_save) {
+          float4* dst = reinterpret_cast<float4*>(g.pre_save + o);
+          dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+          dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+        }
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           packed[e] = __float2bfloat16(
@@ -287,7 +327,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
       } else {  // FC2
         const float* res = static_cast<const float*>(g.resid) + o;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) packed[e] = __float2bfloat16(res[e] + v[e]);
+        for (int e = 0; e < 8; ++e)
+          packed[e] = __float2bfloat16(res[e] + dpw * v[e]);
       }
       *reinterpret_cast<uint4*>(static_cast<bf16*>(g.out) + o) =
           *reinterpret_cast<const uint4*>(packed);
@@ -420,6 +461,50 @@ int launch_gemm(const GemmArgs& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The five launches of one block call; the training pointers (dp1, dp2
+// and the saves) are null at inference.
+struct Train {
+  const float *dp1, *dp2;
+  bf16 *h1, *h2;
+  float *stats1, *stats2, *pre;
+};
+
+int run_block(const void* x, const void* ln1s, const void* ln1b,
+              const void* wqkv, const void* bqkv, const void* wproj,
+              const void* bproj, const void* rel_bias, const void* mask,
+              int nw_img, const void* ln2s, const void* ln2b, const void* w1,
+              const void* b1, const void* w2, const void* b2, void* out,
+              void* qkv, void* ctx, void* x2, void* hidden,
+              long long n_windows, int tokens, int channels, int heads,
+              float scale, float eps, const Train& tr, cudaStream_t s) {
+  const int M = (int)(n_windows * tokens), C = channels;
+  if (M == 0) return 0;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto b = [](const void* p) { return static_cast<const bf16*>(p); };
+  int err;
+
+  GemmArgs g{x, f(ln1s), f(ln1b), b(wqkv), f(bqkv), nullptr, qkv,
+             M, 3 * C, C, eps, nullptr, tokens, tr.h1, tr.stats1, nullptr};
+  if ((err = launch_gemm<QKV>(g, s))) return err;
+
+  attention_kernel<<<dim3((unsigned)n_windows, heads), ATT_THREADS, 0, s>>>(
+      b(qkv), f(rel_bias), f(mask), nw_img, static_cast<bf16*>(ctx), tokens,
+      C, scale);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  g = GemmArgs{ctx, nullptr, nullptr, b(wproj), f(bproj), x, x2,
+               M, C, C, eps, tr.dp1, tokens, nullptr, nullptr, nullptr};
+  if ((err = launch_gemm<PROJ>(g, s))) return err;
+
+  g = GemmArgs{x2, f(ln2s), f(ln2b), b(w1), f(b1), nullptr, hidden,
+               M, 4 * C, C, eps, nullptr, tokens, tr.h2, tr.stats2, tr.pre};
+  if ((err = launch_gemm<FC1>(g, s))) return err;
+
+  g = GemmArgs{hidden, nullptr, nullptr, b(w2), f(b2), x2, out,
+               M, C, 4 * C, eps, tr.dp2, tokens, nullptr, nullptr, nullptr};
+  return launch_gemm<FC2>(g, s);
+}
+
 }  // namespace
 
 // Shapes: x/out [n_windows*tokens, C] bf16; weights bf16 row-major
@@ -435,31 +520,32 @@ extern "C" int swinvox_swin_block(
     const void* b2, void* out, void* qkv, void* ctx, void* x2, void* hidden,
     long long n_windows, int tokens, int channels, int heads, float scale,
     float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = (int)(n_windows * tokens), C = channels;
-  if (M == 0) return 0;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto b = [](const void* p) { return static_cast<const bf16*>(p); };
-  int err;
+  const Train none{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   nullptr};
+  return run_block(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                   nw_img, ln2s, ln2b, w1, b1, w2, b2, out, qkv, ctx, x2,
+                   hidden, n_windows, tokens, channels, heads, scale, eps,
+                   none, static_cast<cudaStream_t>(stream));
+}
 
-  GemmArgs g{x, f(ln1s), f(ln1b), b(wqkv), f(bqkv), nullptr, qkv,
-             M, 3 * C, C, eps};
-  if ((err = launch_gemm<QKV>(g, s))) return err;
-
-  attention_kernel<<<dim3((unsigned)n_windows, heads), ATT_THREADS, 0, s>>>(
-      b(qkv), f(rel_bias), f(mask), nw_img, static_cast<bf16*>(ctx), tokens,
-      C, scale);
-  if ((err = (int)cudaGetLastError())) return err;
-
-  g = GemmArgs{ctx, nullptr, nullptr, b(wproj), f(bproj), x, x2,
-               M, C, C, eps};
-  if ((err = launch_gemm<PROJ>(g, s))) return err;
-
-  g = GemmArgs{x2, f(ln2s), f(ln2b), b(w1), f(b1), nullptr, hidden,
-               M, 4 * C, C, eps};
-  if ((err = launch_gemm<FC1>(g, s))) return err;
-
-  g = GemmArgs{hidden, nullptr, nullptr, b(w2), f(b2), x2, out,
-               M, C, 4 * C, eps};
-  return launch_gemm<FC2>(g, s);
+// Kernel C.  As above plus dp1, dp2 [n_windows] f32, and the saved
+// intermediates kernel D reads: h1, h2 [., C] bf16, stats1, stats2 [., 2]
+// f32 (row mean, 1/std), qkv, ctx, x2, pre [., 4C] f32, hidden [., 4C] bf16.
+extern "C" int swinvox_swin_block_train_fwd(
+    const void* x, const void* dp1, const void* dp2, const void* ln1s,
+    const void* ln1b, const void* wqkv, const void* bqkv, const void* wproj,
+    const void* bproj, const void* rel_bias, const void* mask, int nw_img,
+    const void* ln2s, const void* ln2b, const void* w1, const void* b1,
+    const void* w2, const void* b2, void* out, void* h1, void* stats1,
+    void* qkv, void* ctx, void* x2, void* h2, void* stats2, void* pre,
+    void* hidden, long long n_windows, int tokens, int channels, int heads,
+    float scale, float eps, void* stream) {
+  const Train tr{static_cast<const float*>(dp1),
+                 static_cast<const float*>(dp2), static_cast<bf16*>(h1),
+                 static_cast<bf16*>(h2), static_cast<float*>(stats1),
+                 static_cast<float*>(stats2), static_cast<float*>(pre)};
+  return run_block(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                   nw_img, ln2s, ln2b, w1, b1, w2, b2, out, qkv, ctx, x2,
+                   hidden, n_windows, tokens, channels, heads, scale, eps, tr,
+                   static_cast<cudaStream_t>(stream));
 }

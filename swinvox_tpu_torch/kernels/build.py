@@ -1,10 +1,12 @@
 """Builds ``swinvox_tpu_torch/csrc/*.cu`` with nvcc and loads it via ctypes.
 
 The kernels are compiled at first use into ``swinvox_tpu_torch/_build/``
-(git-ignored) as one shared library with a plain C interface:
+(git-ignored) as one shared library with a plain C interface: one nvcc
+per source, all started together, to an object each, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o libswinvox_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o
+    nvcc -shared -o libswinvox_kernels-<hash>.so *.o
 
 The file name carries a hash of the sources and flags, so an edited
 source rebuilds; each build writes a per-process temporary and renames it
@@ -30,7 +32,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -67,22 +69,42 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compiles the kernels unless the library for these sources exists."""
+    """Compiles the kernels unless the library for these sources exists:
+    one nvcc per source, all running at once, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    objs = BUILD_DIR / f"obj.{os.getpid()}"
+    objs.mkdir(exist_ok=True)
     cu, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+             str(objs / f"{src.stem}.o")] for src in cu]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for c, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(c)}"
+                          f"\n{out}")
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp),
+                *(str(objs / f"{src.stem}.o") for src in cu)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}): "
+                          f"{' '.join(link)}\n{proc.stdout}\n{proc.stderr}")
+    shutil.rmtree(objs, ignore_errors=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError("\n".join(failed))
+    so.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, so)
     return so
 
@@ -102,6 +124,35 @@ def _declare(lib: ctypes.CDLL) -> None:
         [p] * 9 + [i] + [p] * 11 + [i64, i, i, i, f, f, p]
     )
     lib.swinvox_swin_block.restype = i
+    # (x, dp1, dp2, ln1s, ln1b, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+    #  nw_img, ln2s, ln2b, w1, b1, w2, b2, out, h1, stats1, qkv, ctx, x2,
+    #  h2, stats2, pre, hidden, n_windows, tokens, channels, heads, scale,
+    #  eps, stream)
+    lib.swinvox_swin_block_train_fwd.argtypes = (
+        [p] * 11 + [i] + [p] * 16 + [i64, i, i, i, f, f, p]
+    )
+    lib.swinvox_swin_block_train_fwd.restype = i
+    lib.swinvox_swin_block_train_bwd_workspace.argtypes = [i64, i, i, i]
+    lib.swinvox_swin_block_train_bwd_workspace.restype = i64
+    # (dout, x, dp1, dp2, 9 saved, ln1s, wqkv, wproj, rel_bias, mask,
+    #  nw_img, ln2s, w1, w2, 14 gradients, work, work_bytes, n_windows,
+    #  tokens, channels, heads, scale, stream)
+    lib.swinvox_swin_block_train_bwd.argtypes = (
+        [p] * 18 + [i] + [p] * 17 + [p, i64, i64, i, i, i, f, p]
+    )
+    lib.swinvox_swin_block_train_bwd.restype = i
+    # merger stack: (x, w, bias, gamma, beta, raws, raw5, stats, work,
+    #  work_bytes, n, leaky, eps, stream) and (x, raws, stats, w, gamma,
+    #  d_raw5, dx, dw, dbias, dgamma, dbeta, work, work_bytes, n, leaky,
+    #  eps, stream)
+    for name in ("fwd", "bwd"):
+        ws = getattr(lib, f"swinvox_merger_stack_{name}_workspace")
+        ws.argtypes = [i64]
+        ws.restype = i64
+    lib.swinvox_merger_stack_fwd.argtypes = [p] * 9 + [i64, i64, f, f, p]
+    lib.swinvox_merger_stack_fwd.restype = i
+    lib.swinvox_merger_stack_bwd.argtypes = [p] * 12 + [i64, i64, f, f, p]
+    lib.swinvox_merger_stack_bwd.restype = i
 
 
 def library() -> ctypes.CDLL:

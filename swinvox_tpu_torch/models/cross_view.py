@@ -6,7 +6,8 @@ a depthwise strided downsample; per (view, head) Q/K/V are flattened to
 one vector, scores [B, heads, N, N] are scaled by 1/sqrt(head_dim * N),
 softmaxed over views, and the value mix is projected back, bilinearly
 upsampled and added to the input, then a 1x1-conv FFN (exact GELU),
-BatchNorm (eval) and dropout (eval: identity).
+BatchNorm and dropout 0.1 (in training, its mask drawn from the caller's
+generator).
 
 The per-view vectors are flattened here in (head_dim, h, w) order and in
 JAX in (h, w, head_dim) order; dot products and the view mix are sums
@@ -15,19 +16,28 @@ over that axis and do not depend on its order.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from swinvox_tpu_torch.models.layers import Conv, Norm, mm_f32, resize_bilinear
+from swinvox_tpu_torch.models.layers import (
+    Conv,
+    Norm,
+    dropout,
+    mm_f32,
+    resize_bilinear,
+)
 
 
 class CrossViewAttention(nn.Module):
     def __init__(self, in_channels: int = 512, num_heads: int = 4,
                  reduction_ratio: int = 4, spatial_downsample_ratio: int = 2,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, dropout_rate: float = 0.1):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.num_heads = num_heads
         self.reduced = in_channels // reduction_ratio
         self.r = spatial_downsample_ratio
@@ -44,7 +54,8 @@ class CrossViewAttention(nn.Module):
         self.ffn_fc2 = Conv(in_channels, in_channels, (1, 1), dtype=dtype)
         self.batch_norm = Norm(in_channels, dtype)
 
-    def forward(self, x: torch.Tensor, n_views: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_views: int, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B*N, C, H, W] with views of one object adjacent."""
         bn, c, h, w = x.shape
         b = bn // n_views
@@ -73,4 +84,5 @@ class CrossViewAttention(nn.Module):
             attended = resize_bilinear(attended, (h, w))
         y = attended + x  # residual around attention only
         y = self.ffn_fc2(F.gelu(self.ffn_fc1(y)))
-        return self.batch_norm(y)
+        y = self.batch_norm(y, train)
+        return dropout(y, self.dropout_rate, train, generator)

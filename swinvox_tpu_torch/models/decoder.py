@@ -44,14 +44,14 @@ class Decoder(nn.Module):
         self.tconv5 = ConvTranspose(8, 1, (1, 1, 1), use_bias=tconv_use_bias,
                                     dtype=dtype)
 
-    def forward(self, features: torch.Tensor,
-                n_views: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, features: torch.Tensor, n_views: int,
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         bn, c = features.shape[:2]
         x = adaptive_avg_pool_7_to_2(features)  # [BN, 256, 2, 2]
         x = x[:, :, None].expand(bn, c, 2, 2, 2)  # new leading depth axis
         for i in range(len(_SPECS)):
             x = getattr(self, f"tconv{i + 1}")(x)
-            x = F.relu(getattr(self, f"bn{i + 1}")(x))
+            x = F.relu(getattr(self, f"bn{i + 1}")(x, train))
         logits = self.tconv5(x)  # [BN, 1, 32, 32, 32]
         raw_features = torch.cat([x, logits], dim=1)
         coarse = logits.reshape(bn // n_views, n_views, 32, 32, 32)

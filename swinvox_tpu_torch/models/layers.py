@@ -156,13 +156,27 @@ class LayerNorm(nn.Module):
 
 
 class Norm(nn.Module):
-    """BatchNorm in eval mode (running stats), float32, on channel axis 1.
+    """BatchNorm on channel axis 1, float32 statistics, eps 1e-5.
 
-    Counterpart of the JAX ``Norm`` at ``train=False``: eps 1e-5, the
-    normalization computed in float32 and rounded once to ``dtype``.
-    ``F.batch_norm`` takes compute-dtype input with float32 statistics and
-    does that in one pass.  Training (batch statistics, biased-variance
-    running update) is a later port.
+    Counterpart of the JAX ``Norm`` (flax ``BatchNorm``, momentum 0.9):
+
+      * ``train=False``: normalize with the running statistics;
+      * ``train=True``: normalize with the batch mean and the *biased*
+        batch variance, and update the running statistics to
+        ``0.9 * running + 0.1 * batch`` with that biased variance, as
+        flax does (``torch.nn.BatchNorm*`` would use the unbiased one);
+      * ``external_stats=(mean, var)``: normalize with the given batch
+        statistics (differentiable through them) and, in training, update
+        the running statistics with them — the merger stack computes its
+        statistics in its own kernel.
+
+    The normalization is computed in float32 and rounded once to
+    ``dtype``; ``F.batch_norm`` does that in one pass (in training it
+    normalizes with the biased variance and, given no running buffers,
+    updates nothing); the running update happens here, without gradient.
+    Its variance is the two-pass one where flax computes E[x^2] - E[x]^2:
+    the two agree to f32 rounding unless |mean| >> std, and the parity
+    tests hold the whole training step to the JAX package's.
     """
 
     def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16):
@@ -173,10 +187,77 @@ class Norm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x, self.mean, self.var, self.scale,
-                         self.bias, training=False, eps=1e-5)
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.mean.mul_(0.9).add_(0.1 * mean.detach().float())
+            self.var.mul_(0.9).add_(0.1 * var.detach().float())
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                external_stats=None) -> torch.Tensor:
+        if external_stats is None:
+            if train:
+                with torch.no_grad():
+                    dims = [0] + list(range(2, x.dim()))
+                    var, mean = torch.var_mean(x.float(), dim=dims,
+                                               correction=0)
+                self._update(mean, var)
+            y = F.batch_norm(x, None if train else self.mean,
+                             None if train else self.var, self.scale,
+                             self.bias, training=train, eps=1e-5)
+            return y.to(self.dtype)
+        mean, var = (s.float() for s in external_stats)
+        if train:
+            self._update(mean, var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        inv = torch.rsqrt(var + 1e-5) * self.scale
+        y = ((x.float() - mean.view(shape)) * inv.view(shape)
+             + self.bias.view(shape))
         return y.to(self.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: per-sample factors 1/keep or 0 for a residual
+    branch (JAX ``DropPath``).  ``factors`` draws one float32 factor per
+    sample from ``generator`` on ``device``; at rate 0, or outside
+    training, it draws nothing and returns ones."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def factors(self, batch: int, train: bool,
+                generator: Optional[torch.Generator],
+                device: torch.device) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return torch.ones(batch, dtype=torch.float32, device=device)
+        keep = 1.0 - self.rate
+        draw = torch.rand(batch, generator=_need(generator), device=device)
+        return (draw < keep).float() / keep
+
+    def forward(self, x: torch.Tensor, train: bool,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        f = self.factors(x.shape[0], train, generator, x.device)
+        shape = (-1,) + (1,) * (x.dim() - 1)
+        return (x.float() * f.view(shape)).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Element-wise dropout (flax ``Dropout``) with its mask drawn from
+    ``generator``: kept values are scaled by 1/keep.  ``F.dropout`` takes
+    no generator, so the mask is drawn here."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=_need(generator), device=x.device)
+    return (x.float() * ((draw < keep).float() / keep)).to(x.dtype)
+
+
+def _need(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("training draws dropout and drop-path masks from an "
+                         "explicit torch.Generator; none was given")
+    return generator
 
 
 def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,

@@ -47,27 +47,30 @@ class Refiner(nn.Module):
         self.up3_tconv = ConvTranspose(32, 1, (4, 4, 4), strides=2, padding=1,
                                        use_bias=tconv_use_bias, dtype=dtype)
 
-    def _down(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        y = getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(x))
+    def _down(self, x: torch.Tensor, name: str, train: bool) -> torch.Tensor:
+        y = getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(x),
+                                        train)
         y = F.leaky_relu(y, self.leaky_value)
         return max_pool(y, 2)  # k4 p2 grows 32 -> 33; the pool floors to 16
 
-    def _up(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        y = getattr(self, f"{name}_bn")(getattr(self, f"{name}_tconv")(x))
+    def _up(self, x: torch.Tensor, name: str, train: bool) -> torch.Tensor:
+        y = getattr(self, f"{name}_bn")(getattr(self, f"{name}_tconv")(x),
+                                        train)
         return F.relu(y)
 
-    def forward(self, coarse_volumes: torch.Tensor) -> torch.Tensor:
+    def forward(self, coarse_volumes: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         """[B, 32, 32, 32] logits -> [B, 32, 32, 32] refined logits."""
         x32 = coarse_volumes[:, None].to(self.dtype)
-        x16 = self._down(x32, "down1")
-        x8 = self._down(x16, "down2")
-        x4 = self._down(x8, "down3")  # [B, 128, 4, 4, 4]
+        x16 = self._down(x32, "down1", train)
+        x8 = self._down(x16, "down2", train)
+        x4 = self._down(x8, "down3", train)  # [B, 128, 4, 4, 4]
         b = x4.shape[0]
         flat = x4.permute(0, 2, 3, 4, 1).reshape(b, 8192)
         flat = F.relu(self.fc1(flat))
         flat = F.relu(self.fc2(flat))
         x4_r = x4 + flat.reshape(b, 4, 4, 4, 128).permute(0, 4, 1, 2, 3)
-        x8_r = x8 + self._up(x4_r, "up1")
-        x16_r = x16 + self._up(x8_r, "up2")
+        x8_r = x8 + self._up(x4_r, "up1", train)
+        x16_r = x16 + self._up(x8_r, "up2", train)
         out = (x32 + self.up3_tconv(x16_r)) * 0.5
         return out[:, 0]

@@ -3,7 +3,7 @@
 Counterpart of ``swinvox_tpu/models/resnet.py``: 7x7/2 stem, 3x3/2
 max-pool with -inf padding, bottleneck stages ``stage_depths`` (default
 [3, 4, 6]) of widths (64, 128, 256) x 4.  [B, 3, 224, 224] ->
-[B, 1024, 14, 14].  Eval-mode BatchNorm.
+[B, 1024, 14, 14].  BatchNorm in eval or train mode (``train``).
 """
 
 from __future__ import annotations
@@ -39,13 +39,13 @@ class Bottleneck(nn.Module):
                                         dtype=dtype)
             self.downsample_bn = Norm(width * 4, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = F.relu(self.bn2(self.conv2(out), train))
+        out = self.bn3(self.conv3(out), train)
         shortcut = x
         if self.project:
-            shortcut = self.downsample_bn(self.downsample_conv(x))
+            shortcut = self.downsample_bn(self.downsample_conv(x), train)
         return F.relu(out + shortcut)
 
 
@@ -74,10 +74,10 @@ class ResNet50Trunk(nn.Module):
                 self.block_names.append(name)
                 in_features = width * 4
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x), train))
         # torch maxpool k3 s2 p1 pads with -inf, as the JAX trunk does
         x = max_pool(x, 3, 2, padding=1)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         return x

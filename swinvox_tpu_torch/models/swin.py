@@ -3,20 +3,27 @@
 Counterpart of ``swinvox_tpu/models/swin.py``: patch size 4, window 7,
 embed dim 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24), MLP ratio 4, qkv
 bias, relative-position bias, alternating W-MSA / SW-MSA (shift 3, zeroed
-on a map no larger than the window), patch merging.  Inference only
-(DropPath is the identity).  Stage outputs are NHWC, as in JAX.
+on a map no larger than the window), patch merging, and in training
+stochastic depth with rates ``np.linspace(0, 0.1, sum(depths))`` over the
+blocks.  Stage outputs are NHWC, as in JAX.
 
 Two paths over one parameter layout, gated like the JAX package:
 
-  * ``use_pallas_block`` (``cfg.NETWORK.USE_PALLAS_SWIN_BLOCK``): each block
-    runs ``ops/pallas_swin_block.fused_swin_block`` (kernel B on the card,
-    its plain version on the CPU);
-  * otherwise the unfused modules (LN, ``WindowMSA``, MLP).
+  * the fused block: at inference under ``use_pallas_block``
+    (``USE_PALLAS_SWIN_BLOCK``) each block runs
+    ``ops/pallas_swin_block.fused_swin_block`` (kernel B), in training
+    under ``use_pallas_block_train`` (``USE_PALLAS_SWIN_BLOCK_TRAIN``)
+    ``fused_swin_block_train`` (kernels C and D) with per-image drop-path
+    factors repeated per window; the plain versions on the CPU;
+  * otherwise the unfused modules (LN, ``WindowMSA``, MLP, ``DropPath``).
 
-With ``use_rewindow_chain`` (``cfg.NETWORK.USE_REWINDOW_CHAIN``) on top of
-the fused path, a stage is partitioned once and tokens stay window-major
-from block to block, each layout change one ``ops/rewindow.rewindow``
-(kernel A).  Unlike JAX, the chain runs on the CPU too, with the plain
+Both paths draw the drop-path factors from the caller's generator in the
+same order (per block: the attention branch's, then the MLP's), so they
+drop the same branches.  With ``use_rewindow_chain``
+(``USE_REWINDOW_CHAIN``) on top of the fused path of the mode, a stage is
+partitioned once and tokens stay window-major from block to block, each
+layout change one ``ops/rewindow.rewindow`` (kernel A, forward and
+backward).  Unlike JAX, the chain runs on the CPU too, with the plain
 versions.
 """
 
@@ -33,11 +40,15 @@ from torch import nn
 from swinvox_tpu_torch.models.layers import (
     Conv,
     Dense,
+    DropPath,
     LayerNorm,
     mm_f32,
     resize_bilinear,
 )
-from swinvox_tpu_torch.ops.pallas_swin_block import fused_swin_block
+from swinvox_tpu_torch.ops.pallas_swin_block import (
+    fused_swin_block,
+    fused_swin_block_train,
+)
 from swinvox_tpu_torch.ops.rewindow import (
     rewindow,
     window_partition,
@@ -128,12 +139,17 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window: int = 7,
                  shift: int = 0, dtype=torch.bfloat16,
-                 use_pallas_block: bool = False):
+                 use_pallas_block: bool = False,
+                 use_pallas_block_train: bool = False,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.window, self.shift = window, shift
         self.dtype = dtype
         self.use_pallas_block = use_pallas_block
+        self.use_pallas_block_train = use_pallas_block_train
+        self.drop_path1 = DropPath(drop_path_rate)
+        self.drop_path2 = DropPath(drop_path_rate)
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = WindowMSA(dim, num_heads, window, dtype)
         self.norm2 = LayerNorm(dim, dtype)
@@ -152,27 +168,34 @@ class SwinBlock(nn.Module):
             ).to(device)
         return self._mask_cache[key]
 
+    def fused(self, train: bool) -> bool:
+        """Whether this mode runs the fused block (kernel B, or C and D)."""
+        return self.use_pallas_block_train if train else self.use_pallas_block
+
     def forward(
         self,
         x: torch.Tensor,
         win_shape: Optional[Tuple[int, int, int]] = None,
         win_layout: str = "aligned",
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """x: [B, H, W, C], or window-major [B*nW, T, C] tokens in
         ``win_layout`` with ``win_shape=(B, H, W)`` (the stage chain);
         returns the same layout kind (window-major: this block's own)."""
         if win_shape is not None:
-            _, h, w = win_shape
+            b, h, w = win_shape
         else:
-            _, h, w, _ = x.shape
+            b, h, w, _ = x.shape
         # canonical swin zeroes the shift on a map no larger than the window
         shift = 0 if (h <= self.window and w <= self.window) else self.shift
         mask = self._mask(h, w, shift, x.device)
-        if win_shape is not None and not self.use_pallas_block:
+        if win_shape is not None and not self.fused(train):
             raise ValueError("window-major SwinBlock input requires the "
-                             "fused-block path (use_pallas_block)")
-        if self.use_pallas_block:
-            return self._fused(x, win_shape, win_layout, h, w, shift, mask)
+                             "fused-block path of this mode")
+        if self.fused(train):
+            return self._fused(x, win_shape, win_layout, b, h, w, shift, mask,
+                               train, generator)
 
         shortcut = x
         y = self.norm1(x)
@@ -182,11 +205,16 @@ class SwinBlock(nn.Module):
         y = window_unpartition(y, self.window, h, w)
         if shift > 0:
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
+        if train:
+            y = self.drop_path1(y, train, generator)
         x = shortcut + y
         y = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x))))
+        if train:
+            y = self.drop_path2(y, train, generator)
         return x + y
 
-    def _fused(self, x, win_shape, win_layout, h, w, shift, mask):
+    def _fused(self, x, win_shape, win_layout, b, h, w, shift, mask, train,
+               generator):
         if win_shape is not None:
             y = x
             want = "shifted" if shift > 0 else "aligned"
@@ -202,8 +230,7 @@ class SwinBlock(nn.Module):
                 y = torch.roll(y, shifts=(-shift, -shift), dims=(1, 2))
             y = window_partition(y, self.window)
         a, dt = self.attn, self.dtype
-        y = fused_swin_block(
-            y.contiguous(),
+        weights = (
             self.norm1.scale, self.norm1.bias,
             a.qkv_kernel.to(dt), a.qkv_bias,
             a.proj_kernel.to(dt), a.proj_bias,
@@ -211,8 +238,20 @@ class SwinBlock(nn.Module):
             self.norm2.scale, self.norm2.bias,
             self.mlp_fc1.kernel.to(dt), self.mlp_fc1.bias,
             self.mlp_fc2.kernel.to(dt), self.mlp_fc2.bias,
-            num_heads=self.num_heads,
         )
+        if train:
+            # per-image factors, drawn as the unfused path draws them,
+            # repeated over the image's windows
+            per_img = (h // self.window) * (w // self.window)
+            dp1 = self.drop_path1.factors(b, train, generator, x.device)
+            dp2 = self.drop_path2.factors(b, train, generator, x.device)
+            y = fused_swin_block_train(
+                y.contiguous(), dp1.repeat_interleave(per_img),
+                dp2.repeat_interleave(per_img), *weights,
+                num_heads=self.num_heads)
+        else:
+            y = fused_swin_block(y.contiguous(), *weights,
+                                 num_heads=self.num_heads)
         if win_shape is not None:
             return y
         y = window_unpartition(y, self.window, h, w)
@@ -252,12 +291,17 @@ class SwinTiny(nn.Module):
         img_size: int = 224,
         dtype=torch.bfloat16,
         use_pallas_block: bool = False,
+        use_pallas_block_train: bool = False,
         use_rewindow_chain: bool = True,
+        drop_path_rate: float = 0.1,
     ):
         super().__init__()
         self.depths, self.window, self.img_size = tuple(depths), window, img_size
         self.dtype = dtype
+        # stages run window-major on the fused path of the mode
         self.chain = use_rewindow_chain and use_pallas_block
+        self.train_chain = use_rewindow_chain and use_pallas_block_train
+        rates = np.linspace(0.0, drop_path_rate, sum(self.depths))
         self.patch_embed = Conv(in_channels, embed_dim,
                                 (patch_size, patch_size), strides=patch_size,
                                 dtype=dtype)
@@ -272,9 +316,14 @@ class SwinTiny(nn.Module):
                     dim, heads, window,
                     shift=0 if d % 2 == 0 else window // 2,
                     dtype=dtype, use_pallas_block=use_pallas_block,
+                    use_pallas_block_train=use_pallas_block_train,
+                    drop_path_rate=float(
+                        rates[sum(self.depths[:stage_idx]) + d]),
                 ))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         b, h, w, c = x.shape
         if (h, w) != (self.img_size, self.img_size):
             x = resize_bilinear(x.permute(0, 3, 1, 2).float(),
@@ -286,23 +335,25 @@ class SwinTiny(nn.Module):
 
         features: List[torch.Tensor] = []
         win = self.window
+        chain = self.train_chain if train else self.chain
         for stage_idx, depth in enumerate(self.depths):
             if stage_idx > 0:
                 x = getattr(self, f"merge{stage_idx}")(x)
             bb, hh, ww, _ = x.shape
             small = hh <= win and ww <= win
-            if self.chain:
+            if chain:
                 xw = window_partition(x, win)
                 layout = "aligned"
             for d in range(depth):
                 blk = getattr(self, f"stage{stage_idx}_block{d}")
-                if self.chain:
-                    xw = blk(xw, win_shape=(bb, hh, ww), win_layout=layout)
+                if chain:
+                    xw = blk(xw, win_shape=(bb, hh, ww), win_layout=layout,
+                             train=train, generator=generator)
                     eff_shift = 0 if small else blk.shift
                     layout = "shifted" if eff_shift > 0 else "aligned"
                 else:
-                    x = blk(x)
-            if self.chain:
+                    x = blk(x, train=train, generator=generator)
+            if chain:
                 x = window_unpartition(xw, win, hh, ww)
                 if layout == "shifted":
                     x = torch.roll(x, shifts=(win // 2, win // 2), dims=(1, 2))

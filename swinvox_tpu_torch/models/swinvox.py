@@ -1,7 +1,9 @@
 """The assembled SwinVox model: encoder -> decoder -> merger -> refiner.
 
-Counterpart of ``swinvox_tpu/models/swinvox.py`` at inference; submodules
-are named encoder/decoder/merger/refiner as in the flax tree.
+Counterpart of ``swinvox_tpu/models/swinvox.py``, at inference and in
+training (``train=True``: batch statistics and their running update,
+dropout and drop-path masks drawn from the caller's generator);
+submodules are named encoder/decoder/merger/refiner as in the flax tree.
 
   images [B, N, H, W, 3]
     -> encoder  -> [B*N, 256, 7, 7]
@@ -46,9 +48,12 @@ class SwinVoxModel(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         merger_single_view_identity: bool = True,
         use_pallas_swin_block: bool = False,
+        use_pallas_swin_block_train: bool = False,
         use_rewindow_chain: bool = True,
         swin_depths: Tuple[int, ...] = (2, 2, 6, 2),
         resnet_stage_depths: Tuple[int, int, int] = (3, 4, 6),
+        use_merger_stack: bool = False,
+        merger_stack_max_volumes: int = 64,
     ):
         super().__init__()
         self.use_merger, self.use_refiner = use_merger, use_refiner
@@ -62,6 +67,7 @@ class SwinVoxModel(nn.Module):
             att_spatial_downsample_ratio=att_spatial_downsample_ratio,
             dtype=dtype,
             use_pallas_swin_block=use_pallas_swin_block,
+            use_pallas_swin_block_train=use_pallas_swin_block_train,
             use_rewindow_chain=use_rewindow_chain,
             swin_depths=swin_depths,
             resnet_stage_depths=resnet_stage_depths,
@@ -69,7 +75,8 @@ class SwinVoxModel(nn.Module):
         self.decoder = Decoder(tconv_use_bias, dtype)
         if use_merger:
             self.merger = Merger(leaky_value, dtype,
-                                 merger_single_view_identity)
+                                 merger_single_view_identity,
+                                 use_merger_stack, merger_stack_max_volumes)
         if use_refiner:
             self.refiner = Refiner(leaky_value, tconv_use_bias, dtype)
 
@@ -81,16 +88,21 @@ class SwinVoxModel(nn.Module):
         package initializes it from ``generator`` (default: seeded with
         ``cfg.CONST.RNG_SEED``).
 
-        Training-only flags do not apply.  The two inference kernels not
-        ported yet raise rather than run their plain math in their place:
-        ``USE_PALLAS_MERGER`` and the fused W-MSA kernel that
-        ``USE_PALLAS_WINDOW_ATTENTION`` selects when
-        ``USE_PALLAS_SWIN_BLOCK`` is off.
+        The JAX kernels not ported yet raise rather than run their plain
+        math in their place: ``USE_PALLAS_MERGER``, the fused W-MSA kernel
+        that ``USE_PALLAS_WINDOW_ATTENTION`` selects at inference when
+        ``USE_PALLAS_SWIN_BLOCK`` is off, ``USE_PALLAS_MERGER_TRAIN``,
+        ``USE_SLAB_MERGER`` and ``REFINER_DOWN1_PALLAS``.
         """
         net = cfg.NETWORK
-        if net.USE_PALLAS_MERGER:
-            raise NotImplementedError(
-                "USE_PALLAS_MERGER: the fused merger kernel is not ported")
+        for flag, what in (
+            ("USE_PALLAS_MERGER", "the fused inference merger kernel"),
+            ("USE_PALLAS_MERGER_TRAIN", "the banded merger conv kernel"),
+            ("USE_SLAB_MERGER", "the slab merger conv kernel"),
+            ("REFINER_DOWN1_PALLAS", "the refiner's fused conv backward"),
+        ):
+            if getattr(net, flag):
+                raise NotImplementedError(f"{flag}: {what} is not ported")
         if net.USE_PALLAS_WINDOW_ATTENTION and not net.USE_PALLAS_SWIN_BLOCK:
             raise NotImplementedError(
                 "USE_PALLAS_WINDOW_ATTENTION without USE_PALLAS_SWIN_BLOCK: "
@@ -110,25 +122,39 @@ class SwinVoxModel(nn.Module):
             dtype=_DTYPES[net.COMPUTE_DTYPE],
             merger_single_view_identity=net.MERGER_SINGLE_VIEW_IDENTITY,
             use_pallas_swin_block=net.USE_PALLAS_SWIN_BLOCK,
+            use_pallas_swin_block_train=net.USE_PALLAS_SWIN_BLOCK_TRAIN,
             use_rewindow_chain=net.USE_REWINDOW_CHAIN,
             swin_depths=tuple(net.SWIN_DEPTHS),
             resnet_stage_depths=tuple(net.RESNET_STAGE_DEPTHS),
+            use_merger_stack=net.USE_MERGER_STACK,
+            merger_stack_max_volumes=net.MERGER_STACK_MAX_VOLUMES,
         )
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.CONST.RNG_SEED)
         init_reference_(model, generator, net.INIT_SCHEME)
-        return model.eval()
+        return model
 
-    def forward(self, rendering_images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(
+        self,
+        rendering_images: torch.Tensor,
+        train: bool = False,
+        enable_merger: bool = True,
+        enable_refiner: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """``enable_merger`` / ``enable_refiner`` are the epoch gates of
+        training (a gated merger is replaced by the mean over views, a
+        gated refiner by the identity); ``generator`` draws the dropout
+        and drop-path masks when ``train``."""
         n_views = rendering_images.shape[1]
-        features = self.encoder(rendering_images)
-        raw_features, coarse = self.decoder(features, n_views)
-        if self.use_merger:
-            merged = self.merger(raw_features, coarse)
+        features = self.encoder(rendering_images, train, generator)
+        raw_features, coarse = self.decoder(features, n_views, train)
+        if self.use_merger and enable_merger:
+            merged = self.merger(raw_features, coarse, train)
         else:
             merged = coarse.float().mean(1).to(self.dtype)
-        if self.use_refiner:
-            refined = self.refiner(merged)
+        if self.use_refiner and enable_refiner:
+            refined = self.refiner(merged, train)
         else:
             refined = merged
         return {

@@ -1,2 +1,3 @@
-"""Ops: the window-attention core and the serving path's two kernels, each
-beside its plain PyTorch version."""
+"""Ops: the window-attention core, the losses, and the hand-written
+kernels of the serving path and the training step, each beside its plain
+PyTorch version."""

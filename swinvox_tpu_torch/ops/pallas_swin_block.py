@@ -1,16 +1,25 @@
-"""Whole inference Swin block on window-major tokens (kernel B).
+"""Whole Swin block on window-major tokens: inference (kernel B) and
+training (kernels C and D).
 
-Counterpart of ``fused_swin_block`` in ``swinvox_tpu/ops/pallas_swin_block.py``
-(the module keeps that path so a reader finds it; nothing here is Pallas):
+Counterpart of ``fused_swin_block`` and ``fused_swin_block_train`` in
+``swinvox_tpu/ops/pallas_swin_block.py`` (the module keeps that path so a
+reader finds it; nothing here is Pallas):
 
   x_win --LN1--> qkv --per-head attention(+rel bias, +shift mask)--> proj
-        --(+x_win)--> LN2 --> fc1 -> exact GELU -> fc2 --(+res)--> out_win
+        --(x dp1, +x_win)--> LN2 --> fc1 -> exact GELU -> fc2
+        --(x dp2, +res)--> out_win
 
-On a CUDA tensor ``fused_swin_block`` launches ``csrc/swin_block.cu``
-(bf16 only); on a CPU tensor it runs ``swin_block_reference``, the same
-function in plain PyTorch with the kernel's rounding points: LayerNorm
-statistics, softmax and residual sums in float32, products of
-compute-dtype operands accumulated in float32.  Inference only.
+with dp1/dp2 per-window stochastic-depth factors in training (1 at
+inference).  On a CUDA tensor ``fused_swin_block`` launches
+``csrc/swin_block.cu`` (bf16 only) and ``fused_swin_block_train`` is an
+autograd function over kernel C (the same launches with the factors and
+the intermediates the backward needs saved) and kernel D
+(``csrc/swin_block_train.cu``, the backward).  On a CPU tensor both run
+``swin_block_reference`` / ``swin_block_train_reference``, the same
+function in plain PyTorch (autograd through its ops for the gradient)
+with the kernels' rounding points: LayerNorm statistics, softmax and
+residual sums in float32, products of compute-dtype operands accumulated
+in float32.
 
 Tokens are unpadded, [nW, T, C] with T = window**2 = 49: the JAX kernel's
 padding to 64 (with a -1e9 bias on pad keys) is a Mosaic tiling need and
@@ -35,6 +44,36 @@ def _ln(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x32 - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
+def _block(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
+           rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
+           scale, eps):
+    nw, t, c = x.shape
+    hd = c // num_heads
+    if scale is None:
+        scale = hd**-0.5
+    dtype = x.dtype
+    x32 = x.float()
+    h = _ln(x32, ln1_scale, ln1_bias, eps).to(dtype)
+    qkv = (mm_f32(h, wqkv) + bqkv.float()).to(dtype)
+    q, k, v = qkv.view(nw, t, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    s = mm_f32(q, k.transpose(-1, -2)) * scale + rel_bias.float()[None]
+    if mask is not None:
+        nwi = mask.shape[0]
+        s = (s.view(nw // nwi, nwi, num_heads, t, t)
+             + mask.float()[None, :, None])
+        s = s.view(nw, num_heads, t, t)
+    p = torch.softmax(s, dim=-1)
+    ctx = mm_f32(p.to(dtype), v).to(dtype)  # [nW, heads, T, hd]
+    ctx = ctx.permute(0, 2, 1, 3).reshape(nw, t, c)
+    attn = mm_f32(ctx, wproj) + bproj.float()
+    x2 = x32 + (attn if dp1 is None else dp1.float().view(-1, 1, 1) * attn)
+    h2 = _ln(x2, ln2_scale, ln2_bias, eps).to(dtype)
+    m = F.gelu(mm_f32(h2, w1) + b1.float()).to(dtype)  # exact (erf)
+    mlp = mm_f32(m, w2) + b2.float()
+    out = x2 + (mlp if dp2 is None else dp2.float().view(-1, 1, 1) * mlp)
+    return out.to(dtype)
+
+
 def swin_block_reference(
     x: torch.Tensor,
     ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
@@ -50,27 +89,32 @@ def swin_block_reference(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """Plain PyTorch Swin block: [nW, T, C] -> [nW, T, C] in x.dtype."""
-    nw, t, c = x.shape
-    hd = c // num_heads
-    if scale is None:
-        scale = hd**-0.5
-    dtype = x.dtype
-    x32 = x.float()
-    h = _ln(x32, ln1_scale, ln1_bias, eps).to(dtype)
-    qkv = (mm_f32(h, wqkv) + bqkv.float()).to(dtype)
-    q, k, v = qkv.view(nw, t, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    s = mm_f32(q, k.transpose(-1, -2)) * scale + rel_bias.float()[None]
-    if mask is not None:
-        nwi = mask.shape[0]
-        s = s.view(nw // nwi, nwi, num_heads, t, t) + mask.float()[None, :, None]
-        s = s.view(nw, num_heads, t, t)
-    p = torch.softmax(s, dim=-1)
-    ctx = mm_f32(p.to(dtype), v).to(dtype)  # [nW, heads, T, hd]
-    ctx = ctx.permute(0, 2, 1, 3).reshape(nw, t, c)
-    x2 = x32 + (mm_f32(ctx, wproj) + bproj.float())
-    h2 = _ln(x2, ln2_scale, ln2_bias, eps).to(dtype)
-    m = F.gelu(mm_f32(h2, w1) + b1.float()).to(dtype)  # exact (erf)
-    return (x2 + (mm_f32(m, w2) + b2.float())).to(dtype)
+    return _block(x, None, None, ln1_scale, ln1_bias, wqkv, bqkv, wproj,
+                  bproj, rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2,
+                  num_heads, scale, eps)
+
+
+def swin_block_train_reference(
+    x: torch.Tensor, dp1: torch.Tensor, dp2: torch.Tensor,
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    wqkv: torch.Tensor, bqkv: torch.Tensor,
+    wproj: torch.Tensor, bproj: torch.Tensor,
+    rel_bias: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+    num_heads: int,
+    scale: Optional[float] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Plain PyTorch training Swin block (kernels C and D's plain
+    version): ``swin_block_reference`` with the two residual branches
+    scaled by the per-window factors dp1, dp2 [nW]; autograd through its
+    ops gives the gradient."""
+    return _block(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj,
+                  bproj, rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2,
+                  num_heads, scale, eps)
 
 
 def _check_cuda(x, num_heads, tensors) -> None:
@@ -171,3 +215,177 @@ def fused_swin_block(
 
 
 fused_swin_block.launches = 0
+
+
+# ---------------------------------------------------------------- training
+
+_SAVED = ("h1", "stats1", "qkv", "ctx", "x2", "h2", "stats2", "pre", "hidden")
+
+
+def swin_block_train_forward(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv,
+                             wproj, bproj, rel_bias, mask, ln2_scale,
+                             ln2_bias, w1, b1, w2, b2, num_heads, scale,
+                             eps):
+    """Kernel C: the block's forward on the card with the factors dp1, dp2
+    [nW] (float32) on its two residual branches.  Returns ``(out, saved)``,
+    ``saved`` the intermediates kernel D reads: LN1 and LN2 outputs (bf16)
+    with their row mean and 1/std, qkv, ctx (bf16), x2 (f32), the f32
+    pre-GELU values and the bf16 GELU output."""
+    args = (x, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+            ln2_scale, ln2_bias, w1, b1, w2, b2)
+    names = ("x", "ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
+             "rel_bias", "mask", "ln2_scale", "ln2_bias", "w1", "b1", "w2",
+             "b2")
+    _check_cuda(x, num_heads, dict(zip(names, args)))
+    nw, t, c = x.shape
+    for name, d in (("dp1", dp1), ("dp2", dp2)):
+        if (d.dtype != torch.float32 or tuple(d.shape) != (nw,)
+                or d.device != x.device or not d.is_contiguous()):
+            raise ValueError(f"swin block train: {name} must be float32 "
+                             f"[{nw}] on {x.device}")
+    lib = build.library()
+    rows = nw * t
+    dev = x.device
+    bf, f32 = torch.bfloat16, torch.float32
+    out = torch.empty_like(x)
+    saved = {
+        "h1": torch.empty(rows, c, dtype=bf, device=dev),
+        "stats1": torch.empty(rows, 2, dtype=f32, device=dev),
+        "qkv": torch.empty(rows, 3 * c, dtype=bf, device=dev),
+        "ctx": torch.empty(rows, c, dtype=bf, device=dev),
+        "x2": torch.empty(rows, c, dtype=f32, device=dev),
+        "h2": torch.empty(rows, c, dtype=bf, device=dev),
+        "stats2": torch.empty(rows, 2, dtype=f32, device=dev),
+        "pre": torch.empty(rows, 4 * c, dtype=f32, device=dev),
+        "hidden": torch.empty(rows, 4 * c, dtype=bf, device=dev),
+    }
+    ptr = [None if a is None else a.data_ptr() for a in args]
+    with torch.cuda.device(dev):
+        err = lib.swinvox_swin_block_train_fwd(
+            ptr[0], dp1.data_ptr(), dp2.data_ptr(), *ptr[1:9],
+            0 if mask is None else mask.shape[0], *ptr[9:],
+            out.data_ptr(), *(saved[k].data_ptr() for k in _SAVED),
+            nw, t, c, num_heads, float(scale), float(eps),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "swin block train forward")
+    swin_block_train_forward.launches += 1
+    return out, saved
+
+
+swin_block_train_forward.launches = 0
+
+
+def swin_block_train_backward(dout, x, dp1, dp2, saved, ln1_scale, wqkv,
+                              wproj, rel_bias, mask, ln2_scale, w1, w2,
+                              num_heads, scale):
+    """Kernel D: the block's backward from ``dout`` and kernel C's saved
+    intermediates.  Returns dx (bf16), the LayerNorm and bias gradients
+    and ``rel_bias``'s (float32), and the four weight gradients in their
+    operands' dtype (bf16: the model casts its f32 weights to bf16 before
+    the block, and the cast's gradient widens them again)."""
+    nw, t, c = x.shape
+    dout = dout.to(torch.bfloat16).contiguous()
+    lib = build.library()
+    dev = x.device
+    bf, f32 = torch.bfloat16, torch.float32
+    g = {
+        "dx": torch.empty_like(x),
+        "dln1_scale": torch.empty(c, dtype=f32, device=dev),
+        "dln1_bias": torch.empty(c, dtype=f32, device=dev),
+        "dwqkv": torch.empty(c, 3 * c, dtype=bf, device=dev),
+        "dbqkv": torch.empty(3 * c, dtype=f32, device=dev),
+        "dwproj": torch.empty(c, c, dtype=bf, device=dev),
+        "dbproj": torch.empty(c, dtype=f32, device=dev),
+        "drel_bias": torch.empty(num_heads, t, t, dtype=f32, device=dev),
+        "dln2_scale": torch.empty(c, dtype=f32, device=dev),
+        "dln2_bias": torch.empty(c, dtype=f32, device=dev),
+        "dw1": torch.empty(c, 4 * c, dtype=bf, device=dev),
+        "db1": torch.empty(4 * c, dtype=f32, device=dev),
+        "dw2": torch.empty(4 * c, c, dtype=bf, device=dev),
+        "db2": torch.empty(c, dtype=f32, device=dev),
+    }
+    ws = lib.swinvox_swin_block_train_bwd_workspace(nw, t, c, num_heads)
+    work = torch.empty(ws, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.swinvox_swin_block_train_bwd(
+            dout.data_ptr(), x.data_ptr(), dp1.data_ptr(), dp2.data_ptr(),
+            *(saved[k].data_ptr() for k in _SAVED),
+            ln1_scale.data_ptr(), wqkv.data_ptr(), wproj.data_ptr(),
+            rel_bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            0 if mask is None else mask.shape[0], ln2_scale.data_ptr(),
+            w1.data_ptr(), w2.data_ptr(), *(v.data_ptr() for v in g.values()),
+            work.data_ptr(), ws, nw, t, c, num_heads, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "swin block train backward")
+    swin_block_train_backward.launches += 1
+    return g
+
+
+swin_block_train_backward.launches = 0
+
+
+class _SwinBlockTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj,
+                bproj, rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2,
+                num_heads, scale, eps):
+        dp1 = dp1.float().contiguous()
+        dp2 = dp2.float().contiguous()
+        out, saved = swin_block_train_forward(
+            x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
+            rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
+            scale, eps)
+        ctx.save_for_backward(x, dp1, dp2, ln1_scale, wqkv, wproj, rel_bias,
+                              mask, ln2_scale, w1, w2,
+                              *(saved[k] for k in _SAVED))
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        (x, dp1, dp2, ln1_scale, wqkv, wproj, rel_bias, mask, ln2_scale, w1,
+         w2, *rest) = ctx.saved_tensors
+        g = swin_block_train_backward(
+            dout, x, dp1, dp2, dict(zip(_SAVED, rest)), ln1_scale, wqkv,
+            wproj, rel_bias, mask, ln2_scale, w1, w2, ctx.num_heads,
+            ctx.scale)
+        return (g["dx"], None, None, g["dln1_scale"], g["dln1_bias"],
+                g["dwqkv"], g["dbqkv"], g["dwproj"], g["dbproj"],
+                g["drel_bias"], None, g["dln2_scale"], g["dln2_bias"],
+                g["dw1"], g["db1"], g["dw2"], g["db2"], None, None, None)
+
+
+def fused_swin_block_train(
+    x: torch.Tensor, dp1: torch.Tensor, dp2: torch.Tensor,
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    wqkv: torch.Tensor, bqkv: torch.Tensor,
+    wproj: torch.Tensor, bproj: torch.Tensor,
+    rel_bias: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+    num_heads: int,
+    scale: Optional[float] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Differentiable training Swin block on window-major tokens, with
+    per-window stochastic-depth factors dp1, dp2 [nW] (1/keep or 0).
+
+    Same operands as ``fused_swin_block``.  A CPU tensor runs the plain
+    version (autograd through its ops); a CUDA tensor runs kernel C
+    forward and kernel D backward, or raises.  ``dx`` carries the residual
+    path even where a factor is 0.
+    """
+    if scale is None:
+        scale = (x.shape[-1] // num_heads) ** -0.5
+    args = (x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
+            rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return swin_block_train_reference(*args, num_heads, scale, eps)
+    if x.device.type != "cuda":
+        raise RuntimeError(
+            f"fused_swin_block_train: unsupported device {x.device}")
+    return _SwinBlockTrain.apply(*args, num_heads, float(scale), float(eps))

@@ -9,7 +9,9 @@ gather that reads and writes every byte once; on a CPU tensor it runs
 
 Tokens are stored unpadded, [B * nWh * nWw, window**2, C]: the JAX
 package pads them to 64 for Mosaic's sublane tiling, which Hopper does
-not need.  Inference only (no autograd).
+not need.  ``rewindow`` is differentiable: a permutation's gradient is
+its inverse, the same kernel with the opposite sign (the JAX VJP,
+``swinvox_tpu/ops/rewindow.py:142-157``), which counts its launches too.
 """
 
 from __future__ import annotations
@@ -59,17 +61,10 @@ def rewindow_reference(x: torch.Tensor, nwh: int, nww: int, window: int,
     return window_partition(img, window)
 
 
-def rewindow(x: torch.Tensor, nwh: int, nww: int, window: int, shift: int,
-             sign: int) -> torch.Tensor:
-    """Permutes window-major tokens between the aligned and shifted window
-    layouts: equals ``rewindow_reference``, exactly.
-
-    A CPU tensor runs the plain version; a CUDA tensor launches kernel A
-    (any dtype: the kernel moves 16-byte vectors, so a row of C channels
-    must span a multiple of 16 bytes) or raises.
-    """
-    if x.device.type == "cpu":
-        return rewindow_reference(x, nwh, nww, window, shift, sign)
+def _rewindow_cuda(x: torch.Tensor, nwh: int, nww: int, window: int,
+                   shift: int, sign: int) -> torch.Tensor:
+    """Launches kernel A on a CUDA tensor (any dtype whose rows of C
+    channels span a multiple of 16 bytes) or raises."""
     if x.device.type != "cuda":
         raise RuntimeError(f"rewindow: unsupported device {x.device}")
     _check(x, nwh, nww, window, shift, sign)
@@ -89,6 +84,32 @@ def rewindow(x: torch.Tensor, nwh: int, nww: int, window: int, shift: int,
     build.check(err, "rewindow")
     rewindow.launches += 1
     return out
+
+
+class _Rewindow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, nwh, nww, window, shift, sign):
+        ctx.args = (nwh, nww, window, shift, -sign)
+        return _rewindow_cuda(x, nwh, nww, window, shift, sign)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_rewindow_cuda(grad.contiguous(), *ctx.args),
+                None, None, None, None, None)
+
+
+def rewindow(x: torch.Tensor, nwh: int, nww: int, window: int, shift: int,
+             sign: int) -> torch.Tensor:
+    """Permutes window-major tokens between the aligned and shifted window
+    layouts: equals ``rewindow_reference``, exactly, and so does its
+    gradient (the inverse permutation).
+
+    A CPU tensor runs the plain version (autograd through its ops); a
+    CUDA tensor launches kernel A, forward and backward, or raises.
+    """
+    if x.device.type == "cpu":
+        return rewindow_reference(x, nwh, nww, window, shift, sign)
+    return _Rewindow.apply(x, nwh, nww, window, shift, sign)
 
 
 rewindow.launches = 0

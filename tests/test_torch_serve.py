@@ -49,7 +49,7 @@ def test_config_matches_the_jax_defaults():
         for name, value in fields.items():
             assert value == ref[section][name], f"{section}.{name}"
             n += 1
-    assert n == 29
+    assert n == 62
 
 
 def test_batching_server_serves_the_port(predictor):
@@ -264,9 +264,10 @@ def test_server_close_never_hangs_a_future(rng):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and serving a nano forward on the CPU leaves jax,
-    flax and the JAX package out of sys.modules (a fresh interpreter:
-    conftest imports jax into this one)."""
+    """Importing the port, serving a nano forward and taking a nano train
+    step on the CPU leaves jax, flax and the JAX package out of
+    sys.modules (a fresh interpreter: conftest imports jax into this
+    one)."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -277,7 +278,10 @@ def test_port_imports_no_jax():
         from swinvox_tpu_torch.infer import Predictor
         from swinvox_tpu_torch.kernels import build
         from swinvox_tpu_torch.models.swinvox import SwinVoxModel
+        from swinvox_tpu_torch.ops import losses, pallas_merger_stack
         from swinvox_tpu_torch.serve import BatchingServer
+        from swinvox_tpu_torch.train.state import create_train_state
+        from swinvox_tpu_torch.train.steps import make_train_step
         cfg = default_config()
         cfg.NETWORK.SWIN_DEPTHS = (1, 1, 1, 1)
         cfg.NETWORK.RESNET_STAGE_DEPTHS = (1, 1, 1)
@@ -286,6 +290,12 @@ def test_port_imports_no_jax():
         with BatchingServer(p, batch_size=2) as server:
             out = server.predict(np.zeros((1, 224, 224, 3), np.float32))
         assert out.shape == (32, 32, 32)
+        state, opts = create_train_state(cfg, device="cpu")
+        step = make_train_step(state.model, opts)
+        state, metrics = step(state, np.zeros((1, 1, 224, 224, 3), np.float32),
+                              np.ones((1, 32, 32, 32), np.uint8),
+                              torch.Generator())
+        assert state.step == 1 and bool(torch.isfinite(metrics["total_loss"]))
         bad = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "flax", "swinvox_tpu"))
         print("LOADED", bad)
