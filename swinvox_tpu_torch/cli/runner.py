@@ -1,0 +1,111 @@
+"""CLI entry point, the evaluation path of ``swinvox_tpu/cli/runner.py``:
+
+  python -m swinvox_tpu_torch.cli.runner --test --weights W.ckpt \
+      [--n-views N] [--set KEY=VALUE ...] [--config JSON] \
+      [--dataset-root DIR] [--out DIR] [--platform cpu|cuda]
+
+``--weights`` takes a JAX checkpoint file (full or params-only).  The
+evaluation batch is ``TEST.EVAL_BATCH_SIZE`` (``--set
+TEST.EVAL_BATCH_SIZE=N``); the JAX runner's ``--batch-size`` sets the
+training batch and comes with training.  The model runs on ``cuda``
+unless ``--platform`` names another device (``--platform cpu`` for a
+host-only run); there is no silent fallback.
+Training (the runner without ``--test``), the LR finder and tuning are
+not ported yet and exit with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+
+
+def get_args_from_command_line(argv=None):
+    parser = argparse.ArgumentParser(description="SwinVox runner (PyTorch)")
+    parser.add_argument("--test", dest="test", action="store_true",
+                        help="test neural networks")
+    parser.add_argument("--weights", dest="weights", default=None,
+                        help="initialize network from a checkpoint")
+    parser.add_argument("--out", dest="out_path", default=None,
+                        help="output path")
+    parser.add_argument("--n-views", dest="n_views", default=None, type=int,
+                        help="number of rendering views")
+    parser.add_argument("--config", dest="config_json", default=None,
+                        help="JSON file of config overrides")
+    parser.add_argument("--set", dest="overrides", action="append",
+                        default=[], metavar="KEY=VALUE",
+                        help="dotted config override, e.g. "
+                        "NETWORK.USE_MERGER=false")
+    parser.add_argument("--dataset-root", dest="dataset_root", default=None,
+                        help="root containing ShapeNetRendering/ "
+                        "ShapeNetVox32/ and a taxonomy .json")
+    parser.add_argument("--platform", dest="platform", default="cuda",
+                        help="torch device to run on (default cuda; "
+                        "'cpu' for a host-only run)")
+    return parser.parse_args(argv)
+
+
+def build_config(args):
+    from swinvox_tpu_torch.config import default_config
+
+    cfg = default_config()
+    if args.config_json:
+        with open(args.config_json) as f:
+            cfg.update(json.load(f))
+    if args.dataset_root:
+        root = args.dataset_root
+        tax = next((os.path.join(root, c) for c in ("taxonomy.json",
+                                                     "ShapeNet.json")
+                    if os.path.exists(os.path.join(root, c))), None)
+        if tax is None:
+            raise SystemExit(f"No taxonomy json found under {root}")
+        paths = cfg.DATASETS.SHAPENET
+        paths.TAXONOMY_FILE_PATH = tax
+        paths.RENDERING_PATH = os.path.join(
+            root, "ShapeNetRendering/%s/%s/rendering/%02d.png")
+        paths.VOXEL_PATH = os.path.join(root,
+                                        "ShapeNetVox32/%s/%s/model.binvox")
+    if args.n_views is not None:
+        cfg.CONST.N_VIEWS_RENDERING = args.n_views
+    if args.out_path is not None:
+        cfg.DIR.OUT_PATH = args.out_path
+    if args.weights is not None:
+        cfg.CONST.WEIGHTS = args.weights
+    for ov in args.overrides:
+        if "=" not in ov:
+            raise SystemExit(f"--set expects KEY=VALUE, got {ov!r}")
+        key, value = ov.split("=", 1)
+        if value.lower() in ("true", "false"):
+            parsed = value.lower() == "true"
+        else:
+            try:
+                parsed = json.loads(value)  # ints, floats, lists
+            except ValueError:
+                parsed = value
+        cfg.set(key, parsed)
+    return cfg
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(format="[%(levelname)s] %(asctime)s %(message)s",
+                        level=logging.INFO)
+    args = get_args_from_command_line(argv)
+    cfg = build_config(args)
+    cfg.validate()
+    if not args.test:
+        logging.error("training (train_net) is not ported yet; use --test")
+        return 2
+    if not cfg.CONST.WEIGHTS:
+        logging.error("Please specify the file path of checkpoint!")
+        return 2
+    from swinvox_tpu_torch.train.trainer import test_net
+
+    test_net(cfg, device=args.platform)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,24 +1,39 @@
-"""Serving and training configuration of the port.
+"""Serving, training and evaluation configuration of the port.
 
-The fields of ``swinvox_tpu.config.Config`` that the serving path and the
-training step read, under the same names, in the same sections, with the
-same defaults (``tests/test_torch_serve.py`` holds them equal).  Anything
-with these attributes works where a ``Config`` is taken, the JAX
+The fields of ``swinvox_tpu.config.Config`` that the serving path, the
+training step and the evaluation entry point (``test_net``, the ShapeNet
+test loader, the runner) read, under the same names, in the same
+sections, with the same defaults (``tests/test_torch_serve.py`` holds
+them equal), and the JAX ``Config``'s ``set``/``update``/``validate``.
+Anything with these attributes works where a ``Config`` is taken, the JAX
 package's own ``Config`` included, so one config can drive both packages.
 
-Data-set, directory, LR-finder and mesh fields stay in the JAX package
-until the modules that read them are ported, as do the flags that pick
-between XLA formulations of one function (``USE_BAND2D_MERGER``,
+The Pascal3D and Pix3D paths, the training data set and augmentation
+fields, LR-finder and mesh fields stay in the JAX package until the
+modules that read them are ported, as do the flags that pick between XLA
+formulations of one function (``USE_BAND2D_MERGER``,
 ``REFINER_UNROLLED_CONV``, ``TRAIN.FUSED_OPTIMIZER``: the port has one
-formulation each) and ``TRAIN.DEVICE_AUGMENT``, which the data pipeline
-reads.
+formulation each) and ``TRAIN.DEVICE_AUGMENT``, which the training data
+pipeline reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Tuple
+
+
+@dataclass
+class ShapeNetPaths:
+    TAXONOMY_FILE_PATH: str = "./datasets/ShapeNet.json"
+    RENDERING_PATH: str = "./data/ShapeNetRendering/%s/%s/rendering/%02d.png"
+    VOXEL_PATH: str = "./data/ShapeNetVox32/%s/%s/model.binvox"
+
+
+@dataclass
+class DatasetsConfig:
+    SHAPENET: ShapeNetPaths = field(default_factory=ShapeNetPaths)
 
 
 @dataclass
@@ -30,12 +45,20 @@ class ConstConfig:
     N_VIEWS_RENDERING: int = 1
     CROP_IMG_W: int = 128
     CROP_IMG_H: int = 128
+    NUM_WORKER: int = 16
+    WEIGHTS: str = ""
+
+
+@dataclass
+class DirConfig:
+    OUT_PATH: str = "./output"
 
 
 @dataclass
 class DatasetConfig:
     MEAN: Tuple[float, float, float] = (0.5, 0.5, 0.5)
     STD: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+    TEST_DATASET: str = "ShapeNet"
 
 
 @dataclass
@@ -52,10 +75,10 @@ class NetworkConfig:
     CROSS_ATT_NUM_HEADS: int = 4
     # "bfloat16" or "float32"; parameters stay float32 either way
     COMPUTE_DTYPE: str = "bfloat16"
-    # selects the fused W-MSA kernel (not ported) when the Swin-block
-    # kernel is off; from_config refuses that combination
+    # kernel H (csrc/fused_msa.cu) for W-MSA at inference when the
+    # Swin-block kernel is off
     USE_PALLAS_WINDOW_ATTENTION: bool = True
-    # fused merger kernel at inference (not ported; from_config refuses it)
+    # kernel I (csrc/merger_stack.cu) for the merger stack at inference
     USE_PALLAS_MERGER: bool = False
     # training-path merger kernels of the JAX package not ported yet
     # (banded and slab convs); from_config refuses them
@@ -124,18 +147,77 @@ class TestConfig:
         (240, 240),
         (240, 240),
     )
+    VOXEL_THRESH: Tuple[float, ...] = (0.2, 0.3, 0.4, 0.5)
+    EVAL_BATCH_SIZE: int = 8
 
 
 @dataclass
 class Config:
-    CONST: ConstConfig = field(default_factory=ConstConfig)
+    DATASETS: DatasetsConfig = field(default_factory=DatasetsConfig)
     DATASET: DatasetConfig = field(default_factory=DatasetConfig)
+    CONST: ConstConfig = field(default_factory=ConstConfig)
+    DIR: DirConfig = field(default_factory=DirConfig)
     NETWORK: NetworkConfig = field(default_factory=NetworkConfig)
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
     TEST: TestConfig = field(default_factory=TestConfig)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def update(self, overrides: dict) -> "Config":
+        """Recursively applies a nested dict of overrides in place."""
+        _apply_overrides(self, overrides)
+        return self
+
+    def set(self, dotted_key: str, value: Any) -> "Config":
+        """Sets e.g. ``cfg.set('NETWORK.USE_MERGER', False)``; lists
+        become tuples and numbers take the field's type, as in JAX."""
+        parts = dotted_key.split(".")
+        obj: Any = self
+        for p in parts[:-1]:
+            obj = getattr(obj, p)
+        current = getattr(obj, parts[-1])
+        if isinstance(current, tuple) and isinstance(value, (list, tuple)):
+            value = tuple(
+                tuple(v) if isinstance(v, (list, tuple)) else v for v in value
+            )
+        elif (current is not None and not isinstance(current, bool)
+              and isinstance(current, (int, float))):
+            value = type(current)(value)
+        setattr(obj, parts[-1], value)
+        return self
+
+    def validate(self) -> None:
+        """The JAX ``Config.validate`` checks of the fields kept here."""
+        if self.TRAIN.POLICY not in ("adam", "sgd"):
+            raise ValueError(f"Unknown optimizer policy {self.TRAIN.POLICY!r}")
+        stages = tuple(self.NETWORK.SWIN_T_STAGES)
+        if stages == (-1,):
+            stages = (3,)
+            self.NETWORK.SWIN_T_STAGES = stages
+        if any(s < 0 or s > 3 for s in stages):
+            raise ValueError(f"SWIN_T_STAGES must be within [0,3], got {stages}")
+        reduced = 512 // self.NETWORK.CROSS_ATT_REDUCTION_RATIO
+        if reduced % self.NETWORK.CROSS_ATT_NUM_HEADS != 0:
+            raise ValueError(
+                f"cross-view reduced channels ({reduced}) must be divisible "
+                f"by num_heads ({self.NETWORK.CROSS_ATT_NUM_HEADS})")
+        if self.CONST.N_VIEWS_RENDERING < 1:
+            raise ValueError("N_VIEWS_RENDERING must be >= 1")
+
+
+def _apply_overrides(obj: Any, overrides: dict) -> None:
+    for k, v in overrides.items():
+        if not hasattr(obj, k):
+            raise KeyError(f"Unknown config key: {k} on {type(obj).__name__}")
+        current = getattr(obj, k)
+        if dataclasses.is_dataclass(current) and isinstance(v, dict):
+            _apply_overrides(current, v)
+        else:
+            if isinstance(current, tuple) and isinstance(v, (list, tuple)):
+                v = tuple(tuple(x) if isinstance(x, (list, tuple)) else x
+                          for x in v)
+            setattr(obj, k, v)
 
 
 def default_config() -> Config:

@@ -19,6 +19,10 @@ transposed conv does not flip, torch's does); the encoder's [C, H, W]
 ``LayerNorm`` affine comes from [H, W, C].  Any leaf left over or missing,
 on either side, raises.
 
+``jax_variables`` is the inverse: a port module's weights as the flax
+``{"params", "batch_stats"}`` tree of numpy arrays, in the JAX layout,
+for a checkpoint the JAX package can read.
+
 ``load_jax_train_state`` carries a whole JAX ``TrainState`` across: the
 variables as above, each module's optimizer state (Adam's ``mu``, ``nu``
 and ``count``, or SGD's ``trace``, laid out as the parameters they
@@ -33,9 +37,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from swinvox_tpu_torch.models.layers import Conv, ConvTranspose, LayerNorm
+from swinvox_tpu_torch.models.layers import (
+    Conv,
+    ConvTranspose,
+    Dense,
+    LayerNorm,
+    Norm,
+)
 
 _WRAPPERS = frozenset({"Conv_0", "Dense_0", "LayerNorm_0", "bn"})
+_WRAPPER_OF = ((Conv, "Conv_0"), (Dense, "Dense_0"), (LayerNorm, "LayerNorm_0"),
+               (Norm, "bn"))
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -98,6 +110,41 @@ def load_jax_variables(model: nn.Module,
                 raise ValueError(f"{flax_path}: shape {arr.shape} does not "
                                  f"fit {name} {tuple(tensor.shape)}")
             tensor.copy_(torch.from_numpy(arr.copy()))  # copy: drops flips
+
+
+def to_jax_layout(owner: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
+    """The inverse of ``to_torch_layout``."""
+    if leaf == "kernel" and isinstance(owner, Conv):
+        nd = arr.ndim - 2
+        return np.transpose(arr, (*range(2, nd + 2), 1, 0))
+    if leaf == "kernel" and isinstance(owner, ConvTranspose):
+        nd = arr.ndim - 2
+        arr = np.transpose(arr, (*range(2, nd + 2), 0, 1))
+        return np.flip(arr, axis=tuple(range(nd)))
+    if isinstance(owner, LayerNorm) and len(owner.shape) == 3:
+        return np.transpose(arr, (1, 2, 0))
+    return arr
+
+
+def jax_variables(model: nn.Module) -> Dict[str, dict]:
+    """The port module's weights as the flax ``{"params", "batch_stats"}``
+    tree (numpy, JAX layout): each tensor under its owner's flax path,
+    with the owner type's wrapper level put back; BatchNorm running
+    statistics go to ``batch_stats``."""
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, tensor in model.state_dict().items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        path = owner_name.split(".") if owner_name else []
+        path += [w for cls, w in _WRAPPER_OF if isinstance(owner, cls)]
+        coll = ("batch_stats" if isinstance(owner, Norm)
+                and leaf in ("mean", "var") else "params")
+        node = out[coll]
+        for key in path:
+            node = node.setdefault(key, {})
+        arr = tensor.detach().cpu().float().numpy()
+        node[leaf] = np.ascontiguousarray(to_jax_layout(owner, leaf, arr))
+    return out
 
 
 def tree_to_torch(tree: Mapping, model: nn.Module, prefix: Tuple[str, ...] = ()

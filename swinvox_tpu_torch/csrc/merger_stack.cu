@@ -1,5 +1,6 @@
 // The merger's six-layer conv stack in training mode: forward (kernel E)
-// and backward (kernel F).
+// and backward (kernel F); and at inference (kernel I, at the end of the
+// file).
 //
 // Replaces the TPU kernels swinvox_tpu/ops/pallas_merger_stack.py:
 // _fwd_kernel and _bwd_kernel (through `merger_stack`).  On N
@@ -39,6 +40,15 @@
 // conv with the flipped, channel-swapped kernel, added into dA_{l-1} (or,
 // for layer 4, split over its four sources; for layer 0, dx in bf16).
 //
+// Kernel I (inference, replaces swinvox_tpu/ops/pallas_merger.py:
+// _merger_kernel) runs the same direct conv with BatchNorm folded from
+// the running statistics into a per-channel affine: each layer's
+// activation bf16(leaky(conv * s + t)) is written once (the four that
+// conv5 concatenates take 2.4 MB per volume, more than shared memory
+// holds), six launches in all, f32 logits out.  At 24 volumes it is 27.9
+// GFLOP of f32 FMAs (0.42 ms at 67 TFLOP/s) against 17 MB of input and
+// output.
+//
 // Work at N = 48 volumes (3 views, batch 16): 1.57 M voxels, 35.5 k FLOP
 // per voxel over the six layers (2.2 k multiply-adds for a 9->9 layer),
 // so 56 GFLOP forward and twice that backward, in f32 FMAs against the
@@ -70,7 +80,7 @@ constexpr int STAT_THREADS = 256;
 // packed bf16 DHWIO weights of the six layers
 constexpr int W_OFF[7] = {0, 2187, 4374, 6561, 8748, 17496, 17739};
 
-enum Mode { FWD = 0, ADJ_INIT = 1, ADJ_ACC = 2, ADJ_DX = 3 };
+enum Mode { FWD = 0, ADJ_INIT = 1, ADJ_ACC = 2, ADJ_DX = 3, INFER = 4 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -108,15 +118,18 @@ struct ConvArgs {
   const float* aff[4];    // their normalize affine, or null
   const bf16* w;          // this layer's DHWIO kernel [27][Cin][Cout]
   const float* bias;      // FWD: [COUT]
+  const float* fold;      // INFER: folded BatchNorm scale [9], shift [9]
   void* dst[4];           // FWD: bf16 [V][COUT]; ADJ_*: f32 [V][9] x COUT/9;
-                          // ADJ_DX: bf16 [V][9]
+                          // ADJ_DX: bf16 [V][9]; INFER: bf16 [V][9], or
+                          // f32 [V] for the 1-channel last layer
   float* partial;         // FWD: [blocks][2][COUT] sums of r and r^2
   float leaky;
 };
 
 // Direct 3x3x3 conv, one block per (volume, d, half plane), two output
 // voxels per thread.  FWD: the layer's conv of NSRC sources with CIN
-// channels each into COUT channels.  ADJ_*: the input gradient of a layer
+// channels each into COUT channels.  INFER: the same conv followed by the
+// folded inference BatchNorm and LeakyReLU (kernel I).  ADJ_*: the input gradient of a layer
 // whose forward maps COUT channels to CIN: the conv of dr (CIN channels)
 // with the flipped, channel-swapped kernel into COUT channels.
 template <int CIN, int NSRC, int COUT, int MODE>
@@ -130,7 +143,7 @@ __global__ void __launch_bounds__(THREADS) mstack_conv_kernel(ConvArgs a) {
   const int tid = threadIdx.x;
 
   for (int i = tid; i < 27 * CT * COUT; i += THREADS) {
-    if (MODE == FWD) {
+    if (MODE == FWD || MODE == INFER) {
       ws[i] = __bfloat162float(a.w[i]);
     } else {  // forward kernel [27][COUT][CT] -> flipped, swapped
       const int t = i / (CT * COUT), ci = (i / COUT) % CT, co = i % COUT;
@@ -190,6 +203,21 @@ __global__ void __launch_bounds__(THREADS) mstack_conv_kernel(ConvArgs a) {
       float sum = 0.f;
       for (int i = 0; i < THREADS / 32; ++i) sum += red[i][9 * k + co];
       a.partial[((size_t)blk * 2 + k) * COUT + co] = sum;
+    }
+  } else if (MODE == INFER) {
+#pragma unroll
+    for (int co = 0; co < COUT; ++co) {
+      float z0 = acc0[co] * a.fold[co] + a.fold[9 + co];
+      float z1 = acc1[co] * a.fold[co] + a.fold[9 + co];
+      z0 = z0 >= 0.f ? z0 : z0 * a.leaky;
+      z1 = z1 >= 0.f ? z1 : z1 * a.leaky;
+      if (COUT == 1) {
+        static_cast<float*>(a.dst[0])[v0] = z0;
+        static_cast<float*>(a.dst[0])[v1] = z1;
+      } else {
+        static_cast<bf16*>(a.dst[0])[v0 * COUT + co] = __float2bfloat16(z0);
+        static_cast<bf16*>(a.dst[0])[v1 * COUT + co] = __float2bfloat16(z1);
+      }
     }
   } else if (MODE == ADJ_DX) {
     bf16* dst = static_cast<bf16*>(a.dst[0]);
@@ -678,4 +706,50 @@ extern "C" int swinvox_merger_stack_bwd(
     }
   }
   return 0;
+}
+
+// Kernel I: the merger's six layers at inference (replaces
+// swinvox_tpu/ops/pallas_merger.py:_merger_kernel through
+// `merger_view_weights`).  x [n, 32^3, 9] bf16; w the six DHWIO kernels
+// packed in bf16 (offsets W_OFF); fold [6][2][9] f32, per layer the
+// BatchNorm folded from its running statistics with the conv bias,
+// z * s + t (layer 5: element 0).  Each layer is one INFER launch of the
+// direct conv: a_l = bf16(leaky(conv_l(a_{l-1}) * s_l + t_l)) into the
+// scratch acts [5][n*32^3][9] bf16 (conv5 reads a_0..a_3 as its four
+// sources), and the last layer's f32 logits into out [n*32^3].
+extern "C" int swinvox_merger_infer(const void* x, const void* w,
+                                    const void* fold, void* acts, void* out,
+                                    long long n, float leaky, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  const bf16* W = static_cast<const bf16*>(w);
+  const float* F = static_cast<const float*>(fold);
+  bf16* A = static_cast<bf16*>(acts);
+  const size_t nv9 = (size_t)n * V3 * 9;
+  int err;
+  for (int l = 0; l < 4; ++l) {
+    ConvArgs a{};
+    a.src[0] = l == 0 ? static_cast<const bf16*>(x) : A + (l - 1) * nv9;
+    a.w = W + W_OFF[l];
+    a.fold = F + l * 18;
+    a.dst[0] = A + l * nv9;
+    a.leaky = leaky;
+    if ((err = conv<9, 1, 9, INFER>(a, (int)n, s))) return err;
+  }
+  {
+    ConvArgs a{};
+    for (int k = 0; k < 4; ++k) a.src[k] = A + k * nv9;
+    a.w = W + W_OFF[4];
+    a.fold = F + 4 * 18;
+    a.dst[0] = A + 4 * nv9;
+    a.leaky = leaky;
+    if ((err = conv<9, 4, 9, INFER>(a, (int)n, s))) return err;
+  }
+  ConvArgs a{};
+  a.src[0] = A + 4 * nv9;
+  a.w = W + W_OFF[5];
+  a.fold = F + 5 * 18;
+  a.dst[0] = out;
+  a.leaky = leaky;
+  return conv<9, 1, 1, INFER>(a, (int)n, s);
 }

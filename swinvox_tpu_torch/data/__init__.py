@@ -1,18 +1,25 @@
-"""Host-side input and output of serving: image files in, binvox out.
+"""Host-side data: image files in (eval transform), binvox in and out,
+and the ShapeNet test split.
 
-Counterparts of ``swinvox_tpu.data.pipeline.load_image_bgr``,
-``swinvox_tpu.data.transforms.eval_transform`` and
-``swinvox_tpu.data.binvox.write``, in plain numpy and PIL (the JAX
-package's optional C codecs are not ported; the results are the same,
-see ``tests/test_torch_serve.py``).
+Counterparts of ``swinvox_tpu.data.pipeline.load_image_bgr`` and
+``swinvox_tpu.data.transforms.eval_transform`` (here), ``data/binvox.py``
+(the binvox codec), ``data/taxonomy.py`` (the ShapeNet index),
+``data/pipeline.py`` (the test loader) and ``data/synthetic.py`` (the
+ShapeNet-format fixture), in plain numpy and PIL (the JAX package's
+optional C codecs are not ported; the results are the same, see
+``tests/test_torch_serve.py`` and ``tests/test_torch_eval.py``).
 """
 
 from __future__ import annotations
 
 import io
-from typing import BinaryIO, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
+
+from swinvox_tpu_torch.data.binvox import write_binvox
+
+__all__ = ["eval_transform", "load_image_bgr", "write_binvox"]
 
 
 def load_image_bgr(path: str) -> np.ndarray:
@@ -105,20 +112,3 @@ def eval_transform(images: np.ndarray, cfg,
     mean = np.asarray(cfg.DATASET.MEAN, np.float32)
     std = np.asarray(cfg.DATASET.STD, np.float32)
     return np.ascontiguousarray((x - mean) / std, np.float32)
-
-
-def write_binvox(occupied: np.ndarray, fp: BinaryIO) -> None:
-    """Write a dense [D, D, D] bool grid (x, y, z) as binary binvox:
-    <value, count> byte pairs, counts <= 255, voxels in x-z-y order."""
-    header = ("#binvox 1\n"
-              f"dim {' '.join(str(d) for d in occupied.shape)}\n"
-              "translate 0.0 0.0 0.0\nscale 1.0\ndata\n")
-    fp.write(header.encode("latin-1"))
-    flat = np.transpose(occupied.astype(np.uint8), (0, 2, 1)).reshape(-1)
-    starts = np.concatenate(([0], np.flatnonzero(flat[1:] != flat[:-1]) + 1))
-    lengths = np.diff(np.concatenate((starts, [flat.size])))
-    pairs = []
-    for value, n in zip(flat[starts], lengths):
-        full, rest = divmod(int(n), 255)
-        pairs += [value, 255] * full + ([value, rest] if rest else [])
-    fp.write(np.asarray(pairs, np.uint8).tobytes())

@@ -13,9 +13,9 @@ Counterpart of ``swinvox_tpu/infer.py``:
     server = BatchingServer(p, batch_size=32)
 
 Images go through the eval transform (center crop -> background
-composite -> normalize).  Loading a flax checkpoint
-(``Predictor.from_checkpoint`` in JAX) is not ported yet;
-``convert.load_jax_variables`` loads a variables tree held as numpy.
+composite -> normalize).  ``Predictor.from_checkpoint`` builds the model a
+config describes and loads a JAX checkpoint file into it
+(``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 
 from swinvox_tpu_torch.config import default_config
 from swinvox_tpu_torch.data import eval_transform, load_image_bgr, write_binvox
+from swinvox_tpu_torch.utils.cudnn import cudnn_deterministic
 
 
 class Predictor:
@@ -45,18 +46,27 @@ class Predictor:
         self.model = model.to(self.device).eval()
         self.cfg = cfg or default_config()
 
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg=None,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> "Predictor":
+        """The config's model with a JAX checkpoint's weights (full or
+        params-only) on ``device``."""
+        from swinvox_tpu_torch.models.swinvox import SwinVoxModel
+        from swinvox_tpu_torch.train.checkpoint import load_checkpoint
+
+        cfg = cfg or default_config()
+        model = SwinVoxModel.from_config(cfg)
+        load_checkpoint(path, model)
+        return cls(model, device, cfg)
+
     @torch.inference_mode()
     def predict(self, images: np.ndarray) -> np.ndarray:
         """images: [B, N, H, W, 3] normalized float32 -> [B, 32^3] probs."""
         x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-        cudnn = torch.backends.cudnn
-        previous = cudnn.deterministic
-        cudnn.deterministic = True
-        try:
+        with cudnn_deterministic():
             out = self.model(x.to(self.device))["refined_volumes"]
-            return torch.sigmoid(out.float()).cpu().numpy()
-        finally:
-            cudnn.deterministic = previous
+        return torch.sigmoid(out.float()).cpu().numpy()
 
     def predict_files(
         self, image_paths: Sequence[str], bounding_box=None

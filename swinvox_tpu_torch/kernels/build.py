@@ -153,6 +153,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.swinvox_merger_stack_fwd.restype = i
     lib.swinvox_merger_stack_bwd.argtypes = [p] * 12 + [i64, i64, f, f, p]
     lib.swinvox_merger_stack_bwd.restype = i
+    # (x, w, fold, acts, out, n, leaky, stream)
+    lib.swinvox_merger_infer.argtypes = [p] * 5 + [i64, f, p]
+    lib.swinvox_merger_infer.restype = i
+    # (q, k, v, rel_bias, mask, nw_img, out, n_windows, heads, tokens,
+    #  scale, stream)
+    lib.swinvox_window_attention.argtypes = [p] * 5 + [i, p, i64, i, i, f, p]
+    lib.swinvox_window_attention.restype = i
+    # (x, wqkv, bqkv, wproj, bproj, rel_bias, mask, nw_img, out, qkv, ctx,
+    #  n_windows, tokens, channels, heads, scale, stream)
+    lib.swinvox_fused_msa.argtypes = [p] * 7 + [i] + [p] * 3 + [i64, i, i, i,
+                                                                f, p]
+    lib.swinvox_fused_msa.restype = i
 
 
 def library() -> ctypes.CDLL:

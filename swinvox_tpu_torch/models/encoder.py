@@ -50,6 +50,7 @@ class Encoder(nn.Module):
         use_rewindow_chain: bool = True,
         swin_depths: Tuple[int, ...] = (2, 2, 6, 2),
         resnet_stage_depths: Tuple[int, int, int] = (3, 4, 6),
+        use_pallas: bool = False,
     ):
         super().__init__()
         self.use_swin_multi_stage = use_swin_multi_stage
@@ -64,6 +65,7 @@ class Encoder(nn.Module):
             use_pallas_block=use_pallas_swin_block,
             use_pallas_block_train=use_pallas_swin_block_train,
             use_rewindow_chain=use_rewindow_chain,
+            use_pallas=use_pallas,
         )
         for j, s in enumerate(self.swin_stages):
             # the swin resizes every input to its img_size (224)

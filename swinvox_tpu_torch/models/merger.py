@@ -10,7 +10,10 @@ At one view the softmax weight is exactly 1, so the merged volume is the
 coarse volume (the JAX package's ``single_view_identity``): at inference
 the conv stack does not run, and in training it runs forward only,
 without gradient, for its BatchNorm statistics (every merger gradient is
-exactly zero there).  In training the stack runs as
+exactly zero there).  At inference under ``use_pallas``
+(``USE_PALLAS_MERGER``) the stack runs as
+``ops/pallas_merger.merger_view_weights`` (kernel I, BatchNorm folded from
+the running statistics).  In training the stack runs as
 ``ops/pallas_merger_stack.merger_stack`` (kernels E and F) under
 ``use_stack`` when the volume count B*N is a multiple of 16 and at most
 ``stack_max_volumes`` — the JAX package's selection rule — and as plain
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from swinvox_tpu_torch.models.layers import Conv, Norm
+from swinvox_tpu_torch.ops.pallas_merger import merger_view_weights
 from swinvox_tpu_torch.ops.pallas_merger_stack import merger_stack
 
 _CHANNELS = ((9, 9), (9, 9), (9, 9), (9, 9), (36, 9), (9, 1))
@@ -32,8 +36,9 @@ _CHANNELS = ((9, 9), (9, 9), (9, 9), (9, 9), (36, 9), (9, 1))
 class Merger(nn.Module):
     def __init__(self, leaky_value: float = 0.2, dtype=torch.bfloat16,
                  single_view_identity: bool = True, use_stack: bool = False,
-                 stack_max_volumes: int = 64):
+                 stack_max_volumes: int = 64, use_pallas: bool = False):
         super().__init__()
+        self.use_pallas = use_pallas
         self.leaky_value = leaky_value
         self.dtype = dtype
         self.single_view_identity = single_view_identity
@@ -80,6 +85,18 @@ class Merger(nn.Module):
         y5 = norms[5](r32, True, external_stats=(m5, v5))
         return F.leaky_relu(y5, self.leaky_value)
 
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """Inference stack through kernel I: [V, 32, 32, 32] f32 logits."""
+        convs = [getattr(self, f"conv{i + 1}") for i in range(6)]
+        norms = [getattr(self, f"bn{i + 1}") for i in range(6)]
+        return merger_view_weights(
+            x.permute(0, 2, 3, 4, 1).to(self.dtype).contiguous(),
+            [c.kernel.permute(2, 3, 4, 1, 0) for c in convs],
+            [c.bias for c in convs],
+            [(n.scale, n.bias, n.mean, n.var) for n in norms],
+            leaky=self.leaky_value,
+        )
+
     def forward(self, raw_features: torch.Tensor,
                 coarse_volumes: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
@@ -88,7 +105,10 @@ class Merger(nn.Module):
         identity = self.single_view_identity and n_views == 1
         stack = (self.use_stack and train and (b * n_views) % 16 == 0
                  and b * n_views <= self.stack_max_volumes)
-        run = self._stack if stack else (lambda y: self._plain(y, train))
+        # the JAX precedence: fused (inference) > stack > plain convs
+        run = (self._fused if self.use_pallas and not train
+               else self._stack if stack
+               else (lambda y: self._plain(y, train)))
         if identity:
             if train:
                 with torch.no_grad():  # for the BatchNorm statistics only

@@ -15,7 +15,11 @@ Two paths over one parameter layout, gated like the JAX package:
     under ``use_pallas_block_train`` (``USE_PALLAS_SWIN_BLOCK_TRAIN``)
     ``fused_swin_block_train`` (kernels C and D) with per-image drop-path
     factors repeated per window; the plain versions on the CPU;
-  * otherwise the unfused modules (LN, ``WindowMSA``, MLP, ``DropPath``).
+  * otherwise the unfused modules (LN, ``WindowMSA``, MLP, ``DropPath``),
+    where at inference under ``use_pallas`` (``USE_PALLAS_WINDOW_ATTENTION``)
+    ``WindowMSA`` runs ``ops/pallas_fused_msa.fused_window_msa`` (kernel
+    H): the JAX gate ``use_pallas and deterministic and not
+    use_fused_block``.
 
 Both paths draw the drop-path factors from the caller's generator in the
 same order (per block: the attention branch's, then the MLP's), so they
@@ -45,6 +49,7 @@ from swinvox_tpu_torch.models.layers import (
     mm_f32,
     resize_bilinear,
 )
+from swinvox_tpu_torch.ops.pallas_fused_msa import fused_window_msa
 from swinvox_tpu_torch.ops.pallas_swin_block import (
     fused_swin_block,
     fused_swin_block_train,
@@ -89,7 +94,9 @@ class WindowMSA(nn.Module):
     """Multi-head self-attention within windows, with rel-pos bias.
 
     Holds the raw flax-named weights (``qkv_kernel`` [C, 3C] etc.) that the
-    fused block kernel also reads.
+    fused block kernel also reads.  ``use_pallas`` runs the whole module as
+    the fused W-MSA (kernel H) on the same weights, their biases rounded
+    to the compute dtype as the JAX module passes them to its kernel.
     """
 
     def __init__(self, dim: int, num_heads: int, window: int = 7,
@@ -117,7 +124,14 @@ class WindowMSA(nn.Module):
                 .view(t, t, self.num_heads).permute(2, 0, 1).contiguous())
 
     def forward(self, x_windows: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
+                mask: Optional[torch.Tensor],
+                use_pallas: bool = False) -> torch.Tensor:
+        if use_pallas:
+            dt = self.dtype
+            return fused_window_msa(
+                x_windows, self.qkv_kernel.to(dt), self.qkv_bias.to(dt),
+                self.proj_kernel.to(dt), self.proj_bias.to(dt),
+                self.rel_bias(), mask, self.num_heads)
         nw, t, c = x_windows.shape
         hd = self.dim // self.num_heads
         w3 = self.qkv_kernel.to(self.dtype).view(c, 3, self.num_heads, hd)
@@ -141,11 +155,12 @@ class SwinBlock(nn.Module):
                  shift: int = 0, dtype=torch.bfloat16,
                  use_pallas_block: bool = False,
                  use_pallas_block_train: bool = False,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, use_pallas: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.window, self.shift = window, shift
         self.dtype = dtype
+        self.use_pallas = use_pallas
         self.use_pallas_block = use_pallas_block
         self.use_pallas_block_train = use_pallas_block_train
         self.drop_path1 = DropPath(drop_path_rate)
@@ -201,7 +216,8 @@ class SwinBlock(nn.Module):
         y = self.norm1(x)
         if shift > 0:
             y = torch.roll(y, shifts=(-shift, -shift), dims=(1, 2))
-        y = self.attn(window_partition(y, self.window), mask)
+        y = self.attn(window_partition(y, self.window), mask,
+                      use_pallas=self.use_pallas and not train)
         y = window_unpartition(y, self.window, h, w)
         if shift > 0:
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
@@ -294,6 +310,7 @@ class SwinTiny(nn.Module):
         use_pallas_block_train: bool = False,
         use_rewindow_chain: bool = True,
         drop_path_rate: float = 0.1,
+        use_pallas: bool = False,
     ):
         super().__init__()
         self.depths, self.window, self.img_size = tuple(depths), window, img_size
@@ -319,6 +336,7 @@ class SwinTiny(nn.Module):
                     use_pallas_block_train=use_pallas_block_train,
                     drop_path_rate=float(
                         rates[sum(self.depths[:stage_idx]) + d]),
+                    use_pallas=use_pallas,
                 ))
 
     def forward(self, x: torch.Tensor, train: bool = False,

@@ -54,6 +54,8 @@ class SwinVoxModel(nn.Module):
         resnet_stage_depths: Tuple[int, int, int] = (3, 4, 6),
         use_merger_stack: bool = False,
         merger_stack_max_volumes: int = 64,
+        use_pallas: bool = False,
+        use_pallas_merger: bool = False,
     ):
         super().__init__()
         self.use_merger, self.use_refiner = use_merger, use_refiner
@@ -71,12 +73,14 @@ class SwinVoxModel(nn.Module):
             use_rewindow_chain=use_rewindow_chain,
             swin_depths=swin_depths,
             resnet_stage_depths=resnet_stage_depths,
+            use_pallas=use_pallas,
         )
         self.decoder = Decoder(tconv_use_bias, dtype)
         if use_merger:
             self.merger = Merger(leaky_value, dtype,
                                  merger_single_view_identity,
-                                 use_merger_stack, merger_stack_max_volumes)
+                                 use_merger_stack, merger_stack_max_volumes,
+                                 use_pallas_merger)
         if use_refiner:
             self.refiner = Refiner(leaky_value, tconv_use_bias, dtype)
 
@@ -89,25 +93,17 @@ class SwinVoxModel(nn.Module):
         ``cfg.CONST.RNG_SEED``).
 
         The JAX kernels not ported yet raise rather than run their plain
-        math in their place: ``USE_PALLAS_MERGER``, the fused W-MSA kernel
-        that ``USE_PALLAS_WINDOW_ATTENTION`` selects at inference when
-        ``USE_PALLAS_SWIN_BLOCK`` is off, ``USE_PALLAS_MERGER_TRAIN``,
+        math in their place: ``USE_PALLAS_MERGER_TRAIN``,
         ``USE_SLAB_MERGER`` and ``REFINER_DOWN1_PALLAS``.
         """
         net = cfg.NETWORK
         for flag, what in (
-            ("USE_PALLAS_MERGER", "the fused inference merger kernel"),
             ("USE_PALLAS_MERGER_TRAIN", "the banded merger conv kernel"),
             ("USE_SLAB_MERGER", "the slab merger conv kernel"),
             ("REFINER_DOWN1_PALLAS", "the refiner's fused conv backward"),
         ):
             if getattr(net, flag):
                 raise NotImplementedError(f"{flag}: {what} is not ported")
-        if net.USE_PALLAS_WINDOW_ATTENTION and not net.USE_PALLAS_SWIN_BLOCK:
-            raise NotImplementedError(
-                "USE_PALLAS_WINDOW_ATTENTION without USE_PALLAS_SWIN_BLOCK: "
-                "the fused W-MSA kernel is not ported; turn it off for the "
-                "plain attention")
         model = cls(
             use_swin_multi_stage=net.USE_SWIN_T_MULTI_STAGE,
             swin_stages=tuple(net.SWIN_T_STAGES),
@@ -128,6 +124,8 @@ class SwinVoxModel(nn.Module):
             resnet_stage_depths=tuple(net.RESNET_STAGE_DEPTHS),
             use_merger_stack=net.USE_MERGER_STACK,
             merger_stack_max_volumes=net.MERGER_STACK_MAX_VOLUMES,
+            use_pallas=net.USE_PALLAS_WINDOW_ATTENTION,
+            use_pallas_merger=net.USE_PALLAS_MERGER,
         )
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.CONST.RNG_SEED)

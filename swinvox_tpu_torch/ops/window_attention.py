@@ -1,10 +1,13 @@
-"""Windowed multi-head self-attention core, plain PyTorch.
+"""Windowed multi-head self-attention core.
 
-Counterpart of ``window_attention_xla`` in
-``swinvox_tpu/ops/window_attention.py``: scale, relative-position bias,
-the shifted-window additive mask, float32 softmax.  It serves the Swin
-block's unfused path (``USE_PALLAS_SWIN_BLOCK`` off); the serving path
-runs the fused block kernel (``ops/pallas_swin_block.py``) instead.
+Counterpart of ``swinvox_tpu/ops/window_attention.py``:
+``window_attention_xla`` is the plain PyTorch core (scale,
+relative-position bias, the shifted-window additive mask, float32
+softmax); ``window_attention(..., use_pallas=True)`` dispatches a CUDA
+tensor to kernel G (``ops/pallas_window_attention.py``) as the JAX
+function dispatches to its Pallas kernel on a TPU.  The Swin block's
+unfused path runs the plain core; the fused block (kernel B) and the
+fused W-MSA (kernel H) run their own copy of kernel G's device code.
 
 Shapes (windows flattened into the batch axis):
   q, k, v  : [nW, heads, T, head_dim]
@@ -43,3 +46,22 @@ def window_attention_xla(
         scores = scores.view(nw, heads, tokens, tokens)
     probs = torch.softmax(scores, dim=-1)
     return mm_f32(probs.to(v.dtype), v).to(q.dtype)
+
+
+def window_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_bias: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    use_pallas: bool = False,
+) -> torch.Tensor:
+    """Kernel G on a CUDA tensor under ``use_pallas``, else the plain core."""
+    if use_pallas and q.device.type == "cuda":
+        from swinvox_tpu_torch.ops.pallas_window_attention import (
+            window_attention_pallas,
+        )
+
+        return window_attention_pallas(q, k, v, rel_bias, mask, scale)
+    return window_attention_xla(q, k, v, rel_bias, mask, scale)

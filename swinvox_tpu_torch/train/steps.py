@@ -1,7 +1,8 @@
-"""The training step.
+"""The training and evaluation steps.
 
-Counterpart of ``make_train_step`` in ``swinvox_tpu/train/steps.py``
-(the reference's batch loop, core/train.py:216-314): clip the images to
+Counterpart of ``make_train_step`` and ``make_eval_step`` in
+``swinvox_tpu/train/steps.py``.  The training step (the reference's
+batch loop, core/train.py:216-314): clip the images to
 [-1, 1], take binary volumes as uint8 or float, run the model in training
 mode, loss = BCE(merged) + BCE(refined) (the refiner's term only while
 the refiner's gate is open), one backward, then each active module's
@@ -23,9 +24,15 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from swinvox_tpu_torch.ops.losses import bce_with_logits
+from swinvox_tpu_torch.ops.losses import (
+    bce_with_logits,
+    bce_with_logits_per_sample,
+    voxel_fscore,
+    voxel_iou,
+)
 from swinvox_tpu_torch.train.optim import MODULE_NAMES, ModuleOptimizer
 from swinvox_tpu_torch.train.state import TrainState, module_params
+from swinvox_tpu_torch.utils.cudnn import cudnn_deterministic
 
 
 def loss_and_grads(model, images: torch.Tensor, volumes: torch.Tensor,
@@ -109,3 +116,49 @@ def make_train_step(model, optimizers: Dict[str, ModuleOptimizer],
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(model, thresholds: Tuple[float, ...] = (0.2, 0.3, 0.4,
+                                                             0.5)
+                   ) -> Callable:
+    """Returns ``eval_step(images, volumes, enable_merger=True,
+    enable_refiner=True) -> per-sample metrics`` (the reference's
+    core/test.py:114-164): images clipped to [-1, 1] and volumes to
+    [0, 1], the model in eval mode, per-sample BCE x 10 of the merged and
+    (with the refiner) the refined logits, sigmoid, then at each
+    threshold the IoU (1 where the union is empty) and the F-score.
+
+    Inputs are tensors or numpy arrays, moved to the model's device;
+    outputs are tensors there: ``encoder_loss``, ``refiner_loss`` [B],
+    ``iou``, ``fscore`` [B, len(thresholds)] and ``probs`` [B, 32, 32, 32]
+    float32.  cuDNN runs deterministic algorithms for the forward, as in
+    ``Predictor``.
+    """
+
+    @torch.inference_mode()
+    def eval_step(images, volumes, enable_merger: bool = True,
+                  enable_refiner: bool = True) -> Dict[str, torch.Tensor]:
+        dev = next(model.parameters()).device
+        images = torch.as_tensor(images).to(dev, torch.float32).clamp(-1, 1)
+        volumes = torch.as_tensor(volumes).to(dev).float().clamp(0, 1)
+        with cudnn_deterministic():
+            out = model(images, train=False, enable_merger=enable_merger,
+                        enable_refiner=enable_refiner)
+        encoder_loss = bce_with_logits_per_sample(out["merged_volumes"],
+                                                  volumes) * 10.0
+        if enable_refiner:
+            final = out["refined_volumes"]
+            refiner_loss = bce_with_logits_per_sample(final, volumes) * 10.0
+        else:
+            final = out["merged_volumes"]
+            refiner_loss = encoder_loss
+        probs = torch.sigmoid(final.float())
+        return {
+            "encoder_loss": encoder_loss,
+            "refiner_loss": refiner_loss,
+            "iou": voxel_iou(probs, volumes, thresholds),
+            "fscore": voxel_fscore(probs, volumes, thresholds),
+            "probs": probs,
+        }
+
+    return eval_step

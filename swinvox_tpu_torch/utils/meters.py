@@ -1,0 +1,20 @@
+"""Running-average meter (reference utils/average_meter.py:6-21)."""
+
+from __future__ import annotations
+
+
+class AverageMeter:
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+        self.avg = 0.0
+
+    def update(self, val: float, n: int = 1) -> None:
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)

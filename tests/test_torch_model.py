@@ -123,25 +123,36 @@ def test_bridge_covers_every_leaf(models):
 
 
 def test_from_config_flags(models):
-    """The flags gate the kernel path as in JAX; the inference kernels
-    not ported yet raise instead of running plain math in their place."""
+    """The flags gate the kernel paths as in JAX: the Swin-block kernel,
+    the rewindow chain, the W-MSA kernel (USE_PALLAS_WINDOW_ATTENTION,
+    reached without the block kernel) and the inference merger kernel;
+    the JAX kernels not ported yet raise instead of running plain math
+    in their place."""
     from swinvox_tpu_torch.models.swinvox import SwinVoxModel
 
     cfg = nano_config()
     m = SwinVoxModel.from_config(cfg)
     assert m.encoder.swin.chain
-    assert m.encoder.swin.stage0_block0.use_pallas_block
+    blk = m.encoder.swin.stage0_block0
+    assert blk.use_pallas_block and blk.use_pallas
+    assert not m.merger.use_pallas
     cfg.NETWORK.USE_REWINDOW_CHAIN = False
     assert not SwinVoxModel.from_config(cfg).encoder.swin.chain
     cfg.NETWORK.USE_PALLAS_SWIN_BLOCK = False
-    with pytest.raises(NotImplementedError):
-        SwinVoxModel.from_config(cfg)
+    wmsa = SwinVoxModel.from_config(cfg).encoder.swin.stage0_block0
+    assert not wmsa.use_pallas_block and wmsa.use_pallas
     cfg.NETWORK.USE_PALLAS_WINDOW_ATTENTION = False
     plain = SwinVoxModel.from_config(cfg)
     assert not plain.encoder.swin.stage0_block0.use_pallas_block
+    assert not plain.encoder.swin.stage0_block0.use_pallas
     cfg.NETWORK.USE_PALLAS_MERGER = True
-    with pytest.raises(NotImplementedError):
-        SwinVoxModel.from_config(cfg)
+    assert SwinVoxModel.from_config(cfg).merger.use_pallas
+    for flag in ("USE_PALLAS_MERGER_TRAIN", "USE_SLAB_MERGER",
+                 "REFINER_DOWN1_PALLAS"):
+        setattr(cfg.NETWORK, flag, True)
+        with pytest.raises(NotImplementedError):
+            SwinVoxModel.from_config(cfg)
+        setattr(cfg.NETWORK, flag, False)
 
 
 def test_unfused_path_matches_kernel_path(models):

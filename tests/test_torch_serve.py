@@ -43,13 +43,22 @@ def test_config_matches_the_jax_defaults():
     of the JAX package's, so one config drives both."""
     from swinvox_tpu.config import default_config as jax_default
 
-    port, ref = default_config().to_dict(), jax_default().to_dict()
+    def leaves(tree, prefix=()):
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                yield from leaves(value, prefix + (name,))
+            else:
+                yield prefix + (name,), value
+
+    ref = jax_default().to_dict()
     n = 0
-    for section, fields in port.items():
-        for name, value in fields.items():
-            assert value == ref[section][name], f"{section}.{name}"
-            n += 1
-    assert n == 62
+    for path, value in leaves(default_config().to_dict()):
+        want = ref
+        for name in path:
+            want = want[name]
+        assert value == want, ".".join(path)
+        n += 1
+    assert n == 71
 
 
 def test_batching_server_serves_the_port(predictor):
