@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch + CUDA port's serving path, training step and
-evaluation entry point on one NVIDIA GPU.
+"""Drives the PyTorch + CUDA port's serving path, training step,
+evaluation entry point and training entry point on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
     python3 chip_smoke.py --eval-only   # phases 1, 2 and 14 only
@@ -98,7 +98,51 @@ raises, so the exit code is nonzero):
      kernel I's folded BatchNorm is exercised.  Each run's IoU,
      ``evaluate`` wall, samples/s (a smoke reading: 48 samples) and
      forward stream ms are printed; every failure is reported at the
-     end of the phase.
+     end of the phase;
+ 15. kernels J and K (one merger conv forward and its weight gradient,
+     ``ops/pallas_band_conv.py``) at the 24 volumes of a 3-view batch-8
+     step, for every (ci, co) that step runs: (9, 9), (36, 9), (9, 1) and
+     J's adjoints (9, 36), (1, 9); kernel L (the refiner's down1
+     backward, ``ops/pallas_down1.py``) at 8 volumes; each in bf16 and
+     f32 against its plain version on the same inputs (TF32 off):
+     relative L2 <= REL_TOL (1e-2 for a bf16 output, 1e-4 for f32) and,
+     for J and L's dx, phase 4's rule against the f32 plain version; K
+     and L launched twice on the same inputs give the same bits (their
+     sums are fixed-order partials, no atomics); ms
+     per call of the kernel, the plain version and one library call
+     (``F.conv3d``, ``torch.nn.grad.conv3d_weight``,
+     ``aten.convolution_backward``, bf16, unused by the port), summed over
+     a step's 12 J, 6 K and 1 L calls;
+ 16. the training entry point, ``runner`` in train mode in-process, at
+     full width on a synthetic fixture (48 train and 16 val samples, 2
+     categories, 3 views), 2 epochs with validation each epoch and
+     SAVE_FREQ 1, in three configurations: ``train-slab``
+     (USE_SLAB_MERGER, REFINER_DOWN1_PALLAS) and ``train-band``
+     (USE_PALLAS_MERGER_TRAIN, REFINER_DOWN1_PALLAS) at batch 8 (24
+     volumes: not the merger stack), ``train-default`` at batch 16 (48
+     volumes: kernels E and F).  Launch counts per run from the config
+     (per step A 14, C 12, D 12, and J 12, K 6 on the two kernel routes,
+     L 1 with REFINER_DOWN1_PALLAS, E 1 and F 1 on the stack; per
+     validation forward A 7, B 12, and J 6 on the slab route); batch
+     losses finite; every J, K and L call of the slab and band runs held
+     against the plain version on its own inputs (phase 15's rules).
+     Then ``train-slab`` resumes from its epoch-1 checkpoint (its
+     epoch_idx set to 1: the JAX package's resume starts again at the
+     epoch a checkpoint was saved after) and runs epoch 2 again: its
+     batch losses within RESUME_LOSS_RTOL and its epoch-2 weights and
+     BatchNorm statistics within RESUME_STATE_RTOL (per module) of the
+     uninterrupted run's (the Adam moments are reported: see
+     RESUME_STATE_RTOL), and its epoch-2 checkpoint read back by the
+     port's ``load_checkpoint`` into a TrainState exactly.  Step wall (median after the first), epoch and
+     ``evaluate`` walls are smoke readings.
+
+Phases 14 and 16 write their fixtures and checkpoints under a fresh
+temporary directory outside the repo (``tempfile.mkdtemp``), removed at
+the end even on failure; the script leaves nothing in the repo but
+``chiprun_out/chip_smoke.json``.  Phase 16 writes seven full checkpoints
+of about 1 GB (two per configuration at SAVE_FREQ 1, one for the resumed
+epoch) and the resume copy, at most two on disk at once: each
+configuration's are deleted before the next.
 
 Kernel G is reached only through ``window_attention(use_pallas=True)``,
 as its TPU kernel is in the JAX package: no model path launches it, so
@@ -113,7 +157,8 @@ compare nothing.  The last two lines of stdout are the kernels' JSON and
 Each kernel's ``bound_ms`` is the larger of its FLOPs over the card's
 989 TFLOP/s (bf16 operands) and its bytes over 3.35 TB/s, at the calls of
 one main-path step: per serving forward for A and B, per 1-view train
-step for C, D and E, per 3-view train step for F; ``ms`` and
+step for C, D and E, per 3-view train step for F, per 3-view batch-8
+train step for J, K and L; ``ms`` and
 ``plain_ms`` cover the same calls.  Bytes are the function's own: each
 input read once and each output written once (weights included, vectors
 of C elements left out).  What one kernel saves for another (kernel C's
@@ -128,6 +173,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -182,6 +228,39 @@ EVAL_CATEGORIES = (("02691156", "aeroplane"), ("03001627", "chair"))
 # attention mask taken from the next window, planted in kernels B and H,
 # read 1.73-1.76 x and 1.53-1.54 x (passes the max-abs gate, fails this one)
 EVAL_MEAN_RATIO = 1.25
+# phases 15-16: a 3-view training step at batch 8 gives the merger 24
+# volumes (not a multiple of 16, so not the stack) and the refiner 8
+TRAIN_VIEWS = 3
+TRAIN_VOLUMES = 8 * TRAIN_VIEWS
+DOWN1_VOLUMES = 8
+# kernel J's calls per step, (ci, co): the six convs forward and their
+# input gradients (the adjoint kernels); kernel K's: the six weight grads
+J_STEP = ((9, 9),) * 4 + ((36, 9), (9, 1)) + ((9, 9),) * 4 + ((9, 36), (1, 9))
+K_STEP = ((9, 9),) * 4 + ((36, 9), (9, 1))
+# relative L2 of a kernel output to its plain version on the same inputs:
+# the same exact products summed in another order, rounded once to the
+# output type (bf16: one-ulp differences)
+REL_TOL = {"bf16": 1e-2, "f32": 1e-4}
+TRAIN_SAMPLES = 48             # train fixture samples, 2 categories
+VAL_SAMPLES = 16
+TRAIN_EPOCHS = 2
+TRAIN_CONFIGS = {  # (batch, NETWORK flags beyond the defaults)
+    "train-slab": (8, {"USE_SLAB_MERGER": True,
+                       "REFINER_DOWN1_PALLAS": True}),
+    "train-band": (8, {"USE_PALLAS_MERGER_TRAIN": True,
+                       "REFINER_DOWN1_PALLAS": True}),
+    "train-default": (16, {}),
+}
+# train-slab resumed at epoch 2 against its uninterrupted run (H100, 700
+# W, two runs): the batch losses differ by at most 2.8e-4 and 6.6e-4
+# relative (the first is equal: the forward is deterministic, cuDNN's
+# and the scatters' backward is not), the epoch-2 weights and BatchNorm
+# statistics by at most 7.8e-4 relative L2 per module.  The Adam moments
+# are reported, not held: the encoder's gradients move by O(1) under that
+# backward's run-to-run noise (ROADMAP.md "Faults", bf16 gradients), so
+# its first moment read 0.85 relative L2 apart
+RESUME_LOSS_RTOL = 5e-3
+RESUME_STATE_RTOL = 1e-2
 EVAL_CONFIGS = {  # NETWORK flags beyond the defaults
     "default": {},
     "eval-merger": {"USE_PALLAS_MERGER": True},
@@ -1151,9 +1230,20 @@ def eval_breakdown(torch, model, x):
 
 def eval_phase(torch, dev, card, counters, report):
     """Phase 14: ``runner --test`` on a synthetic fixture in every
-    EVAL_CONFIGS configuration, from one params-only checkpoint."""
+    EVAL_CONFIGS configuration, from one params-only checkpoint; the
+    fixture and the checkpoint live in a temporary directory outside the
+    repo, removed at the end even on failure."""
     import shutil
+    import tempfile
 
+    work = Path(tempfile.mkdtemp(prefix="swinvox_chip_smoke_eval_"))
+    try:
+        return _eval_phase(torch, dev, card, counters, report, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _eval_phase(torch, dev, card, counters, report, work):
     from swinvox_tpu_torch.cli import runner
     from swinvox_tpu_torch.config import default_config
     from swinvox_tpu_torch.data.synthetic import generate_dataset
@@ -1166,8 +1256,6 @@ def eval_phase(torch, dev, card, counters, report):
     from swinvox_tpu_torch.train import evaluator, trainer
     from swinvox_tpu_torch.train.checkpoint import save_params_only
 
-    work = ROOT / "_work" / "chip_smoke_eval"
-    shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
     generate_dataset(str(work / "data"), (0, 0, EVAL_SAMPLES // 2),
                      EVAL_VIEWS, list(EVAL_CATEGORIES), seed=SEED)
@@ -1293,7 +1381,6 @@ def eval_phase(torch, dev, card, counters, report):
         evaluator.make_eval_step = real_step
         trainer.evaluate = real_eval
         trainer.test_net = real_test
-    shutil.rmtree(work, ignore_errors=True)
 
     n_blocks, n_rw = swin_calls(cfg)  # 12 and 7 at Swin-T depths
     want = {  # kernel launches per forward
@@ -1346,6 +1433,545 @@ def eval_phase(torch, dev, card, counters, report):
     if failed:
         raise AssertionError("evaluation phase: " + "; ".join(failed))
     return out
+
+
+def conv_work(ci, co, v, wgrad=False):
+    """(FLOPs, own bytes) of one merger conv call at ``v`` volumes, bf16:
+    J reads x and the kernel and writes y; K reads x and dy and writes
+    the float32 dW."""
+    vox = v * 32**3
+    w_bytes = 27 * ci * co * (4 if wgrad else 2)
+    return 2.0 * vox * 27 * ci * co, 2.0 * vox * (ci + co) + w_bytes
+
+
+def down1_work(n):
+    """(FLOPs, own bytes) of one kernel L call at ``n`` volumes, bf16:
+    dy, x and the kernel in, dx and the float32 dW out."""
+    return (2.0 * 2048 * n * (33**3 + 32**3),
+            2.0 * n * (33**3 * 32 + 2 * 32**3) + 2048 * 6.0)
+
+
+def hold_call(name, got, plain, ref, rel_tol, rule=True):
+    """A kernel output against its plain version on the same inputs:
+    relative L2 to the plain version <= ``rel_tol`` (the same exact
+    products summed in another order, then rounded once), and, with
+    ``rule``, phase 4's rule against the f32 plain version.  Returns
+    (max-abs error vs the f32 plain version, relative L2 to the plain
+    version, the failure or None)."""
+    err_k = (got.float() - ref.float()).abs().max().item()
+    err_p = (plain.float() - ref.float()).abs().max().item()
+    rel = rel_l2(got, plain)
+    fail = None
+    if not np.isfinite(err_k) or not rel <= rel_tol:
+        fail = f"{name}: relative L2 to the plain version {rel} > {rel_tol}"
+    elif rule and err_k > 2 * err_p + B_FLOOR:
+        fail = f"{name}: {err_k} from f32 > 2 x {err_p} + {B_FLOOR}"
+    return err_k, rel, fail
+
+
+def check_train_kernels(torch, bc, d1, dev, report):
+    """Phase 15: kernels J and K (one merger conv, forward and weight
+    gradient) at the 24 volumes of a 3-view batch-8 step, every (ci, co)
+    they run there (J's adjoints (9, 36) and (1, 9) included), and
+    kernel L at the step's 8 refiner volumes, in bf16 and f32, against
+    their plain versions on the same inputs (TF32 off)."""
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    v, n = TRAIN_VOLUMES, DOWN1_VOLUMES
+    out = {"J": {}, "K": {}, "L": {}}
+    worst = {k: {"max_abs": 0.0, "rel_l2": 0.0} for k in out}
+    failed = []
+
+    def note(kernel, key, err_k, rel, fail):
+        out[kernel][key] = {"max_abs_vs_f32": err_k,
+                            "rel_l2_vs_plain": rel}
+        worst[kernel]["max_abs"] = max(worst[kernel]["max_abs"], err_k)
+        worst[kernel]["rel_l2"] = max(worst[kernel]["rel_l2"], rel)
+        if fail:
+            failed.append(fail)
+
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        tol = REL_TOL[tag]
+        for ci, co in bc.CONV_SHAPES:
+            x = r(v, 32, 32, 32, ci)
+            k = r(3, 3, 3, ci, co, s=(27 * ci) ** -0.5)
+            xd = x.to(dtype)
+            with exact_f32(torch):
+                ref = bc.merger_conv_reference(x, k)
+                plain = bc.merger_conv_reference(xd, k)
+            got = bc.merger_conv_forward(xd, k)
+            torch.cuda.synchronize()
+            note("J", f"{tag} {ci}->{co}", *hold_call(
+                f"J {tag} {ci}->{co}", got, plain, ref, tol))
+            if (ci, co) in bc.FORWARD_SHAPES:
+                dy = r(v, 32, 32, 32, co)
+                dyd = dy.to(dtype)
+                with exact_f32(torch):
+                    ref_w = bc.merger_conv_wgrad_reference(x, dy)
+                    plain_w = bc.merger_conv_wgrad_reference(xd, dyd)
+                got_w = bc.merger_conv_wgrad(xd, dyd)
+                torch.cuda.synchronize()
+                note("K", f"{tag} {ci}->{co}", *hold_call(
+                    f"K {tag} {ci}->{co}", got_w, plain_w, ref_w,
+                    REL_TOL["f32"], rule=False))
+                if not torch.equal(bc.merger_conv_wgrad(xd, dyd), got_w):
+                    failed.append(f"K {tag} {ci}->{co}: two launches on "
+                                  "the same inputs differ")
+            if dtype != torch.bfloat16:
+                continue
+            xn = xd.permute(0, 4, 1, 2, 3)
+            kn = k.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+
+            def plain_j():
+                with exact_f32(torch):
+                    bc.merger_conv_reference(xd, k)
+
+            pj, kj = time_pair(torch, plain_j,
+                               lambda: bc.merger_conv_forward(xd, k))
+            lj, _ = time_pair(torch, lambda: F.conv3d(xn, kn, padding=1),
+                              lambda: F.conv3d(xn, kn, padding=1))
+            times[("J", ci, co)] = (kj, pj, lj)
+            if (ci, co) in bc.FORWARD_SHAPES:
+                dyn = dyd.permute(0, 4, 1, 2, 3)
+
+                def plain_k():
+                    with exact_f32(torch):
+                        bc.merger_conv_wgrad_reference(xd, dyd)
+
+                def lib_k():
+                    torch.nn.grad.conv3d_weight(xn, (co, ci, 3, 3, 3), dyn,
+                                                padding=1)
+
+                pk, kk = time_pair(torch, plain_k,
+                                   lambda: bc.merger_conv_wgrad(xd, dyd))
+                lk, _ = time_pair(torch, lib_k, lib_k)
+                times[("K", ci, co)] = (kk, pk, lk)
+            log(f"  J {ci}->{co} at {v} volumes: kernel {kj:.4f} ms, plain "
+                f"{pj:.4f}, F.conv3d {lj:.4f}" + (
+                    f"; K {kk:.4f} ms, plain {pk:.4f}, conv3d_weight "
+                    f"{lk:.4f}" if (ci, co) in bc.FORWARD_SHAPES else ""))
+        x = r(n, 32, 32, 32, 1)
+        w = r(4, 4, 4, 1, 32, s=64 ** -0.5)
+        dy = r(n, 33, 33, 33, 32)
+        xd, dyd = x.to(dtype), dy.to(dtype)
+        with exact_f32(torch):
+            ref = d1.down1_backward_reference(x, w, dy)
+            plain = d1.down1_backward_reference(xd, w, dyd)
+        got = d1.down1_backward(xd, w, dyd)
+        again = d1.down1_backward(xd, w, dyd)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            failed.append(f"L {tag}: two launches on the same inputs differ")
+        note("L", f"{tag} dx", *hold_call(f"L {tag} dx", got[0], plain[0],
+                                         ref[0], tol))
+        note("L", f"{tag} dW", *hold_call(f"L {tag} dW", got[1], plain[1],
+                                         ref[1], REL_TOL["f32"], rule=False))
+        if dtype == torch.bfloat16:
+            xn, dyn = xd.permute(0, 4, 1, 2, 3), dyd.permute(0, 4, 1, 2, 3)
+            wn = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+
+            def plain_l():
+                with exact_f32(torch):
+                    d1.down1_backward_reference(xd, w, dyd)
+
+            def lib_l():
+                torch.ops.aten.convolution_backward(
+                    dyn, xn, wn, None, [1, 1, 1], [2, 2, 2], [1, 1, 1],
+                    False, [0, 0, 0], 1, [True, True, False])
+
+            pl, kl = time_pair(torch, plain_l,
+                               lambda: d1.down1_backward(xd, w, dyd))
+            ll, _ = time_pair(torch, lib_l, lib_l)
+            times[("L",)] = (kl, pl, ll)
+            log(f"  L at {n} volumes: kernel {kl:.4f} ms, plain {pl:.4f}, "
+                f"convolution_backward {ll:.4f}")
+    for kernel, errs in out.items():
+        log(f"{kernel}: " + ", ".join(
+            f"{key} {e['max_abs_vs_f32']:.4g}/{e['rel_l2_vs_plain']:.3g}"
+            for key, e in errs.items()) + " (max-abs vs f32 plain / "
+            "relative L2 vs plain)")
+    # per main-path unit, a 3-view batch-8 step: J's 12 calls, K's 6, L's 1
+    rows = {}
+    for kernel, calls in (("J", J_STEP), ("K", K_STEP)):
+        ms_ = [times[(kernel,) + c] for c in calls]
+        flop = sum(conv_work(*c, v, kernel == "K")[0] for c in calls)
+        nbytes = sum(conv_work(*c, v, kernel == "K")[1] for c in calls)
+        rows[kernel] = {"ms": sum(t[0] for t in ms_),
+                        "plain_ms": sum(t[1] for t in ms_),
+                        "library_ms": sum(t[2] for t in ms_),
+                        "bound": bound(flop, nbytes), "calls": len(calls)}
+    kl, pl, ll = times[("L",)]
+    rows["L"] = {"ms": kl, "plain_ms": pl, "library_ms": ll,
+                 "bound": bound(*down1_work(n)), "calls": 1}
+    for kernel, row in rows.items():
+        log(f"{kernel} per step ({row['calls']} calls): kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
+            f"{row['library_ms']:.4f}, bound {row['bound'][0]:.4f} "
+            f"({row['bound'][1]})")
+    report["train_kernels"] = {"errors": out, "worst": worst,
+                               "per_step": rows,
+                               "per_call_ms": {" ".join(map(str, k)): t
+                                               for k, t in times.items()}}
+    if failed:
+        raise AssertionError("training kernels: " + "; ".join(failed))
+    return rows, worst
+
+
+class CallKeeper:
+    """While active, wraps ``module.<attr>`` (a kernel wrapper the ops call
+    by its module-level name) to keep a copy of each call's tensor
+    arguments and outputs; the wrapper runs and counts its launch."""
+
+    def __init__(self, torch, module, attr):
+        self.torch, self.module, self.attr = torch, module, attr
+        self.fn, self.calls = getattr(module, attr), []
+
+    def __enter__(self):
+        def copy(a):
+            if isinstance(a, tuple):
+                return tuple(copy(t) for t in a)
+            return a.detach().clone() if self.torch.is_tensor(a) else a
+
+        def wrapped(*args):
+            out = self.fn(*args)
+            self.calls.append((copy(args), copy(out)))
+            return out
+
+        # the wrapper counts on its module-level name, this one meanwhile
+        wrapped.launches = self.fn.launches
+        self.wrapped = wrapped
+        setattr(self.module, self.attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.fn)
+        self.fn.launches = self.wrapped.launches
+
+
+def hold_train_calls(torch, bc, d1, kept, tag):
+    """Every recorded J, K and L call of a training run against the plain
+    version on that call's own inputs (phase 15's rules)."""
+    failed, worst = [], {"J": 0.0, "K": 0.0, "L": 0.0}
+    for kernel, calls in kept.items():
+        for i, (args, out) in enumerate(calls):
+            if kernel == "L":
+                x, w, dy = args
+                widened = (x.float(), w, dy.float())
+                with exact_f32(torch):
+                    plain = d1.down1_backward_reference(*args)
+                    ref = d1.down1_backward_reference(*widened)
+                pairs = [("dx", out[0], plain[0], ref[0], True),
+                         ("dW", out[1], plain[1], ref[1], False)]
+            else:
+                fn = (bc.merger_conv_reference if kernel == "J"
+                      else bc.merger_conv_wgrad_reference)
+                widened = [a.float() for a in args]
+                with exact_f32(torch):
+                    plain = fn(*args)
+                    ref = fn(*widened)
+                pairs = [("", out, plain, ref, kernel == "J")]
+            for what, got, p_, ref_, bf16_out in pairs:
+                tol = REL_TOL["bf16" if bf16_out and got.dtype ==
+                              torch.bfloat16 else "f32"]
+                _, rel, fail = hold_call(f"{tag} {kernel}{what} call {i}",
+                                         got, p_, ref_, tol, rule=bf16_out)
+                worst[kernel] = max(worst[kernel], rel)
+                if fail:
+                    failed.append(fail)
+    log(f"  {tag}: " + ", ".join(f"{k} {len(c)} calls" for k, c in
+                                 kept.items())
+        + " held against the plain version on their own inputs; relative "
+        "L2 to it, worst: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                        worst.items())
+        + f"; {len(failed)} failed")
+    return {"calls": {k: len(c) for k, c in kept.items()}, "worst": worst,
+            "failed": failed}
+
+
+def want_train_launches(cfg, batch, flags, steps, val_forwards):
+    """Launches of a ``train_net`` run under ``cfg`` (3 views): per step
+    the train kernels (A 14, C 12, D 12 at Swin-T depths; the merger's E
+    and F when B * 3 volumes take the stack, else J 12 and K 6 on the
+    slab and banded routes; L 1 under REFINER_DOWN1_PALLAS), per
+    validation forward A 7 and B 12, and J 6 on the slab route (the slab
+    merger runs at inference too)."""
+    n_blocks, n_rw = swin_calls(cfg)
+    per = train_launches(cfg, batch, TRAIN_VIEWS)
+    layered = flags.get("USE_SLAB_MERGER") or flags.get(
+        "USE_PALLAS_MERGER_TRAIN")
+    stacked = per["merger_stack_forward"] > 0
+    return {
+        "rewindow": steps * per["rewindow"] + val_forwards * n_rw,
+        "fused_swin_block": val_forwards * n_blocks,
+        "swin_block_train_forward": steps * per["swin_block_train_forward"],
+        "swin_block_train_backward": steps * per["swin_block_train_backward"],
+        "merger_stack_forward": steps * per["merger_stack_forward"],
+        "merger_stack_backward": steps * per["merger_stack_backward"],
+        "merger_conv_forward": (steps * 12 if layered and not stacked else 0)
+        + (val_forwards * 6 if flags.get("USE_SLAB_MERGER") else 0),
+        "merger_conv_wgrad": steps * 6 if layered and not stacked else 0,
+        "down1_backward": steps if flags.get("REFINER_DOWN1_PALLAS") else 0,
+    }
+
+
+def _snapshot(torch, state):
+    """Copies of a TrainState's tensors (weights, statistics, moments)."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for m, opt in state.opt_states.items():
+        for kind in ("mu", "nu", "trace"):
+            for k, v in opt.get(kind, {}).items():
+                out[f"{m}.{kind}.{k}"] = v.detach().clone()
+    return out
+
+
+def train_phase(torch, dev, card, counters, report):
+    """Phase 16: the training entry point through ``runner.main`` at full
+    width on a synthetic fixture, in TRAIN_CONFIGS, then ``train-slab``
+    resumed at its second epoch from its first epoch's checkpoint.  The
+    fixture and every checkpoint live in a temporary directory outside
+    the repo, removed at the end even on failure."""
+    import shutil
+    import tempfile
+
+    from swinvox_tpu_torch.cli import runner
+    from swinvox_tpu_torch.config import default_config
+    from swinvox_tpu_torch.data.synthetic import generate_dataset
+    from swinvox_tpu_torch.ops import pallas_band_conv as bc
+    from swinvox_tpu_torch.ops import pallas_down1 as d1
+    from swinvox_tpu_torch.train import checkpoint as ckpt_mod
+    from swinvox_tpu_torch.train import trainer
+    from swinvox_tpu_torch.utils import flax_msgpack
+
+    work = Path(tempfile.mkdtemp(prefix="swinvox_chip_smoke_train_"))
+    real = {k: getattr(trainer, k) for k in
+            ("make_train_step", "create_train_state", "save_checkpoint",
+             "evaluate")}
+    runs, failed = {}, []
+    try:
+        t0 = time.perf_counter()
+        generate_dataset(str(work / "data"), (TRAIN_SAMPLES // 2,
+                                              VAL_SAMPLES // 2, 0),
+                         TRAIN_VIEWS, list(EVAL_CATEGORIES), seed=SEED)
+        log(f"training fixture ({TRAIN_SAMPLES} train, {VAL_SAMPLES} val "
+            f"samples, {TRAIN_VIEWS} views) written in "
+            f"{time.perf_counter() - t0:.1f} s under {work}")
+        rec = {}
+
+        def make_train_step(*a, **k):
+            step = real["make_train_step"](*a, **k)
+
+            def timed(*sa, **sk):
+                t = time.perf_counter()
+                out = step(*sa, **sk)
+                torch.cuda.synchronize()
+                rec["steps"].append((t, time.perf_counter()))
+                return out
+            return timed
+
+        def create_train_state(*a, **k):
+            rec["state"] = real["create_train_state"](*a, **k)
+            return rec["state"]
+
+        def save_checkpoint(path, state, epoch_idx, *a):
+            real["save_checkpoint"](path, state, epoch_idx, *a)
+            keep = work / f"{rec['name']}-epoch{epoch_idx + 1}.ckpt"
+            os.link(path, keep)  # outlives a later overwrite of ``path``
+            rec["saved"].append((epoch_idx, keep))
+
+        def evaluate(*a, **k):
+            t = time.perf_counter()
+            iou = real["evaluate"](*a, **k)
+            torch.cuda.synchronize()
+            rec["evals"].append((time.perf_counter() - t, iou))
+            return iou
+
+        trainer.make_train_step = make_train_step
+        trainer.create_train_state = create_train_state
+        trainer.save_checkpoint = save_checkpoint
+        trainer.evaluate = evaluate
+
+        def run(name, batch, flags, extra=(), keep_calls=True):
+            rec.update(name=name, steps=[], saved=[], evals=[])
+            out = work / "out" / name
+            argv = ["--batch-size", str(batch), "--epoch", str(TRAIN_EPOCHS),
+                    "--n-views", str(TRAIN_VIEWS), "--dataset-root",
+                    str(work / "data"), "--out", str(out), "--platform",
+                    str(dev), "--set", "NETWORK.INIT_SCHEME=standard",
+                    "--set", "TRAIN.SAVE_FREQ=1", "--set",
+                    "TRAIN.LOG_EVERY=1", "--set", "CONST.NUM_WORKER=8",
+                    *extra]
+            for key, val in flags.items():
+                argv += ["--set", f"NETWORK.{key}={str(val).lower()}"]
+            for f in counters.values():
+                f.launches = 0
+            t = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                kept = {k: stack.enter_context(CallKeeper(torch, mod, attr))
+                        for k, mod, attr in (
+                            ("J", bc, "merger_conv_forward"),
+                            ("K", bc, "merger_conv_wgrad"),
+                            ("L", d1, "down1_backward"))} \
+                    if keep_calls else {}
+                if runner.main(argv) != 0:
+                    raise AssertionError(f"runner {name} failed")
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {k: f.launches for k, f in counters.items()}
+            (run_dir,) = list(out.iterdir())
+            rows = [json.loads(line) for line in
+                    (run_dir / "logs" / "train.jsonl").read_text()
+                    .splitlines()]
+            losses = [(row["step"], row["tag"], row["value"]) for row in rows
+                      if row["tag"].endswith("BatchLoss")]
+            spans = rec["steps"]
+            steps_per_epoch = TRAIN_SAMPLES // batch
+            epochs = [spans[i:i + steps_per_epoch]
+                      for i in range(0, len(spans), steps_per_epoch)]
+            res = {"batch": batch, "flags": flags, "wall_s": wall,
+                   "launches": launches, "losses": losses,
+                   "steps": len(spans),
+                   "step_ms_median_after_first": statistics.median(
+                       (b - a) * 1e3 for a, b in spans[1:]),
+                   "epoch_train_s": [e[-1][1] - e[0][0] for e in epochs],
+                   "evaluate_s": [e for e, _ in rec["evals"]],
+                   "val_iou": [iou for _, iou in rec["evals"]],
+                   "saved": [(e, str(p)) for e, p in rec["saved"]]}
+            if keep_calls:
+                res["held_calls"] = hold_train_calls(
+                    torch, bc, d1, {k: c.calls for k, c in kept.items()},
+                    name)
+                failed.extend(res["held_calls"]["failed"])
+                del kept
+            log(f"runner (train) {name}: batch {batch}, {len(spans)} steps, "
+                f"step wall median {res['step_ms_median_after_first']:.3f} ms"
+                f" (after the first), epoch train s "
+                + ", ".join(f"{x:.3f}" for x in res["epoch_train_s"])
+                + ", evaluate s " + ", ".join(
+                    f"{x:.3f}" for x in res["evaluate_s"])
+                + f", val IoU {res['val_iou']}, wall {wall:.1f} s "
+                f"(smoke readings); launches {launches}; on {card}")
+            if not all(np.isfinite(v) for _, _, v in losses) or not losses:
+                failed.append(f"{name}: batch losses not finite: {losses}")
+            return res
+
+        cfg = default_config()
+        for name, (batch, flags) in TRAIN_CONFIGS.items():
+            res = runs[name] = run(name, batch, flags)
+            steps = TRAIN_EPOCHS * (TRAIN_SAMPLES // batch)
+            val_fw = TRAIN_EPOCHS * (VAL_SAMPLES // cfg.TEST.EVAL_BATCH_SIZE)
+            want = want_train_launches(cfg, batch, flags, steps, val_fw)
+            if res["launches"] != want:
+                failed.append(f"{name}: launches {res['launches']} != {want}")
+            if name != "train-slab":  # keep the slab run's files for resume
+                for _, p in rec["saved"]:
+                    p.unlink()
+                shutil.rmtree(work / "out" / name)
+            else:
+                slab_state = rec["state"][0]
+                slab_saved = dict(rec["saved"])
+
+        # resume train-slab at epoch 2 from its epoch-1 checkpoint.  The
+        # JAX package's resume starts again at the epoch a checkpoint was
+        # saved after (its meta's epoch_idx); the file's epoch_idx is set
+        # to 1 so the run continues with epoch 2, as the uninterrupted
+        # run did
+        batch, flags = TRAIN_CONFIGS["train-slab"]
+        final = _snapshot(torch, slab_state)  # what its epoch-2 file holds
+        del slab_state
+        rec.pop("state")
+        slab_saved[1].unlink()
+        shutil.rmtree(work / "out" / "train-slab")
+        blob = flax_msgpack.unpackb(slab_saved[0].read_bytes())
+        blob["meta"]["epoch_idx"] = 1
+        resume_file = work / "resume-at-epoch2.ckpt"
+        resume_file.write_bytes(flax_msgpack.packb(blob))
+        del blob
+        slab_saved[0].unlink()
+        res = runs["train-slab resumed"] = run(
+            "train-slab-resumed", batch, flags,
+            extra=("--weights", str(resume_file)), keep_calls=False)
+        steps = TRAIN_SAMPLES // batch
+        want = want_train_launches(cfg, batch, flags, steps,
+                                   VAL_SAMPLES // cfg.TEST.EVAL_BATCH_SIZE)
+        if res["launches"] != want:
+            failed.append(f"resume: launches {res['launches']} != {want}")
+        base = [x for x in runs["train-slab"]["losses"] if x[0] >= steps]
+        if [x[:2] for x in res["losses"]] != [x[:2] for x in base]:
+            failed.append("resume: the logged batch losses do not line up")
+        loss_errs = [abs(a[2] - b[2]) / abs(b[2])
+                     for a, b in zip(res["losses"], base)]
+        loss_err = max(loss_errs)
+        state = rec["state"][0]
+        resumed = _snapshot(torch, state)
+        # the resumed run's epoch-2 file, read back by the port's
+        # load_checkpoint into a TrainState: the state it was saved from
+        meta = ckpt_mod.load_checkpoint(str(dict(rec["saved"])[1]), state)
+        back = _snapshot(torch, state)
+        readback = [k for k in resumed if not torch.equal(resumed[k],
+                                                          back[k])]
+        if readback or meta["epoch_idx"] != 1 or state.step != 2 * steps:
+            failed.append(f"resume: epoch-2 checkpoint read back differs in "
+                          f"{readback[:4]} (meta {meta}, step {state.step})")
+        # per (module, weights or moment) group: the relative L2 of the
+        # concatenated tensors (a conv bias before a train-mode BatchNorm
+        # has a gradient of pure rounding noise, so its own moments differ
+        # from run to run by their whole size, while the group's do not)
+        groups = {}
+        for k in final:
+            parts = k.split(".")
+            g = (parts[1] + " weights" if parts[0] == "model"
+                 else f"{parts[0]} {parts[1]}")
+            groups.setdefault(g, []).append(k)
+        group_l2 = {g: rel_l2(torch.cat([resumed[k].float().reshape(-1)
+                                         for k in ks]),
+                              torch.cat([final[k].float().reshape(-1)
+                                         for k in ks]))
+                    for g, ks in groups.items()}
+        held = {g: v for g, v in group_l2.items() if g.endswith("weights")}
+        worst_g = max(held, key=held.get)
+        worst_name = max(final, key=lambda k: rel_l2(resumed[k], final[k]))
+        res["vs_uninterrupted"] = {
+            "batch_loss_rel": loss_errs, "batch_loss_max_rel": loss_err,
+            "state_group_rel_l2": group_l2,
+            "worst_tensor": worst_name,
+            "worst_tensor_rel_l2": rel_l2(resumed[worst_name],
+                                          final[worst_name]),
+            "val_iou_uninterrupted": runs["train-slab"]["val_iou"][1]}
+        log(f"resumed at epoch 2 vs uninterrupted: batch losses relative "
+            f"difference per logged loss " + ", ".join(
+                f"{e:.3g}" for e in loss_errs)
+            + f" (limit {RESUME_LOSS_RTOL}); epoch-2 state relative L2 per "
+            "group " + ", ".join(f"{g} {v:.3g}" for g, v in group_l2.items())
+            + f" (limit {RESUME_STATE_RTOL} on the weights; the farthest "
+            "tensor "
+            f"{worst_name} {res['vs_uninterrupted']['worst_tensor_rel_l2']:.3g}"
+            f"); val IoU {res['val_iou']} vs "
+            f"{runs['train-slab']['val_iou'][1]}; epoch-2 checkpoint read "
+            "back exactly")
+        if not loss_err <= RESUME_LOSS_RTOL:
+            failed.append(f"resume: batch losses {loss_err} > "
+                          f"{RESUME_LOSS_RTOL}")
+        if not held[worst_g] <= RESUME_STATE_RTOL:
+            failed.append(f"resume: state {worst_g} {held[worst_g]} > "
+                          f"{RESUME_STATE_RTOL}")
+        del state, resumed, back, final
+        rec.clear()
+    finally:
+        for k, fn in real.items():
+            setattr(trainer, k, fn)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report["train_net"] = runs
+    if failed:
+        raise AssertionError("training phase: " + "; ".join(failed))
+    return runs
 
 
 GRAD_GROUPS = {  # reported group: parameter-name prefixes
@@ -1403,6 +2029,8 @@ def main(argv) -> int:
     from swinvox_tpu_torch.models import swin as swin_mod
     from swinvox_tpu_torch.models.swin import shifted_window_mask
     from swinvox_tpu_torch.models.swinvox import SwinVoxModel
+    from swinvox_tpu_torch.ops import pallas_band_conv as bc
+    from swinvox_tpu_torch.ops import pallas_down1 as d1
     from swinvox_tpu_torch.ops import pallas_fused_msa as fm
     from swinvox_tpu_torch.ops import pallas_merger as mi
     from swinvox_tpu_torch.ops import pallas_merger_stack as ms
@@ -1801,6 +2429,24 @@ def main(argv) -> int:
     ev_n = {k: sum(r["launches"][k] for r in ev["runs"].values())
             for k in ev_counters}
 
+    # ---- 15. training kernels J, K, L against their plain versions -------
+    torch.cuda.empty_cache()
+    tk, tk_worst = check_train_kernels(torch, bc, d1, dev, report)
+
+    # ---- 16. the training entry point: three configurations, a resume ----
+    tr_counters = {"rewindow": rw.rewindow,
+                   "fused_swin_block": blk.fused_swin_block,
+                   "swin_block_train_forward": blk.swin_block_train_forward,
+                   "swin_block_train_backward": blk.swin_block_train_backward,
+                   "merger_stack_forward": ms.merger_stack_forward,
+                   "merger_stack_backward": ms.merger_stack_backward,
+                   "merger_conv_forward": bc.merger_conv_forward,
+                   "merger_conv_wgrad": bc.merger_conv_wgrad,
+                   "down1_backward": d1.down1_backward}
+    tr = train_phase(torch, dev, card, tr_counters, report)
+    tr_n = {k: sum(r["launches"][k] for r in tr.values())
+            for k in tr_counters}
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -1818,38 +2464,43 @@ def main(argv) -> int:
         ("rewindow", "swinvox_tpu_torch/csrc/rewindow.cu",
          "swinvox_tpu/ops/rewindow.py:71",
          launches["rewindow"] + t1["rewindow"] + t3["rewindow"]
-         + ev_n["rewindow"],
+         + ev_n["rewindow"] + tr_n["rewindow"],
          report["rewindow"]["max_abs_err"], None, report["rewindow"]["ms"],
          report["rewindow"]["plain_ms"], a_bound,
          report["rewindow"]["library_ms"]),
         ("fused_swin_block", "swinvox_tpu_torch/csrc/swin_block.cu",
          "swinvox_tpu/ops/pallas_swin_block.py:58",
-         launches["fused_swin_block"] + ev_n["fused_swin_block"],
+         launches["fused_swin_block"] + ev_n["fused_swin_block"]
+         + tr_n["fused_swin_block"],
          report["fused_swin_block"]["max_abs_err"], None,
          report["fused_swin_block"]["ms"],
          report["fused_swin_block"]["plain_ms"], bound(b_flop, b_bytes), None),
         ("swin_block_train_forward", "swinvox_tpu_torch/csrc/swin_block.cu",
          "swinvox_tpu/ops/pallas_swin_block.py:400",
-         t1["swin_block_train_forward"] + t3["swin_block_train_forward"],
+         t1["swin_block_train_forward"] + t3["swin_block_train_forward"]
+         + tr_n["swin_block_train_forward"],
          sw["worst"]["out"], None, sw["fwd_ms"], sw["fwd_plain_ms"],
          (sw["fwd_bound_ms"], sw["fwd_bound_by"]), None),
         ("swin_block_train_backward",
          "swinvox_tpu_torch/csrc/swin_block_train.cu",
          "swinvox_tpu/ops/pallas_swin_block.py:508",
-         t1["swin_block_train_backward"] + t3["swin_block_train_backward"],
+         t1["swin_block_train_backward"] + t3["swin_block_train_backward"]
+         + tr_n["swin_block_train_backward"],
          sw["worst"]["dx"], sw["worst"]["grad_rel_l2"], sw["bwd_ms"],
          sw["bwd_plain_ms"],
          (sw["bwd_bound_ms"], sw["bwd_bound_by"]), None),
         ("merger_stack_forward", "swinvox_tpu_torch/csrc/merger_stack.cu",
          "swinvox_tpu/ops/pallas_merger_stack.py:209",
-         t1["merger_stack_forward"] + t3["merger_stack_forward"],
+         t1["merger_stack_forward"] + t3["merger_stack_forward"]
+         + tr_n["merger_stack_forward"],
          report["merger_stack"]["worst"]["fwd_max_abs"], None,
          mst[n1]["fwd_ms"],
          mst[n1]["fwd_plain_ms"],
          (mst[n1]["fwd_bound_ms"], mst[n1]["fwd_bound_by"]), None),
         ("merger_stack_backward", "swinvox_tpu_torch/csrc/merger_stack.cu",
          "swinvox_tpu/ops/pallas_merger_stack.py:386",
-         t1["merger_stack_backward"] + t3["merger_stack_backward"],
+         t1["merger_stack_backward"] + t3["merger_stack_backward"]
+         + tr_n["merger_stack_backward"],
          report["merger_stack"]["worst"]["dx_max_abs"],
          report["merger_stack"]["worst"]["bwd_rel_l2"], mst[n3]["bwd_ms"],
          mst[n3]["bwd_plain_ms"],
@@ -1876,6 +2527,23 @@ def main(argv) -> int:
          report["merger_infer"]["plain_ms"],
          bound(report["merger_infer"]["flop"],
                report["merger_infer"]["bytes"]), None),
+        ("merger_conv", "swinvox_tpu_torch/csrc/merger_conv.cu",
+         "swinvox_tpu/ops/pallas_band_conv.py:100; "
+         "swinvox_tpu/ops/pallas_slab_conv.py:198",
+         tr_n["merger_conv_forward"], tk_worst["J"]["max_abs"], None,
+         tk["J"]["ms"], tk["J"]["plain_ms"], tk["J"]["bound"],
+         tk["J"]["library_ms"]),
+        ("merger_conv_wgrad", "swinvox_tpu_torch/csrc/merger_conv.cu",
+         "swinvox_tpu/ops/pallas_band_conv.py:144; "
+         "swinvox_tpu/ops/pallas_slab_conv.py:218",
+         tr_n["merger_conv_wgrad"], tk_worst["K"]["max_abs"],
+         tk_worst["K"]["rel_l2"], tk["K"]["ms"], tk["K"]["plain_ms"],
+         tk["K"]["bound"], tk["K"]["library_ms"]),
+        ("down1_backward", "swinvox_tpu_torch/csrc/down1.cu",
+         "swinvox_tpu/ops/pallas_down1.py:126",
+         tr_n["down1_backward"], tk_worst["L"]["max_abs"],
+         tk_worst["L"]["rel_l2"], tk["L"]["ms"], tk["L"]["plain_ms"],
+         tk["L"]["bound"], tk["L"]["library_ms"]),
     )
     for (name, src, replaces, n, err, rel, k_ms, p_ms, (b_ms, b_by),
          lib_ms) in rows:

@@ -1,4 +1,4 @@
-"""swinvox_tpu_torch — swinvox_tpu's serving path and training step in
+"""swinvox_tpu_torch — swinvox_tpu's serving, training and evaluation in
 PyTorch + CUDA.
 
 A port of the JAX package ``swinvox_tpu`` for one NVIDIA H100 (Hopper,
@@ -9,16 +9,21 @@ same weights and inputs.
   * ``models/``  — ``SwinVoxModel`` and its parts, inference and training;
   * ``ops/``     — the window-attention core, the losses and the
                    hand-written kernels (``rewindow``, the fused Swin block
-                   for inference and training, the merger stack), each
-                   beside its plain PyTorch version;
+                   for inference and training, the fused W-MSA, the merger
+                   stack for training and inference, one merger conv, the
+                   refiner's first-conv backward), each beside its plain
+                   PyTorch version;
   * ``kernels/`` — builds ``csrc/*.cu`` with nvcc at first use;
   * ``train/``   — per-module optimizers, ``TrainState``,
-                   ``create_train_state`` and ``make_train_step``;
-  * ``convert``  — loads the JAX package's ``{"params", "batch_stats"}``
-                   and its whole ``TrainState``;
-  * ``config``   — the serving and training fields of the JAX package's
-                   ``Config``;
-  * ``data``     — image files in (eval transform), binvox out;
+                   ``create_train_state``, ``make_train_step``, the
+                   evaluator, ``train_net``, ``test_net`` and checkpoints;
+  * ``cli/``     — the runner (train mode and ``--test``);
+  * ``convert``  — the JAX package's variables and whole ``TrainState``
+                   in, the port's out in the JAX layout;
+  * ``config``   — the serving, training and evaluation fields of the
+                   JAX package's ``Config``;
+  * ``data``     — image files in, the train and eval transforms, binvox,
+                   the ShapeNet loaders and a synthetic fixture;
   * ``infer``    — ``Predictor``;
   * ``serve``    — ``BatchingServer``, micro-batching around a predictor.
 

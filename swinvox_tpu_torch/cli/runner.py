@@ -1,17 +1,25 @@
-"""CLI entry point, the evaluation path of ``swinvox_tpu/cli/runner.py``:
+"""CLI entry point of the port, the training and evaluation paths of
+``swinvox_tpu/cli/runner.py``:
 
+  python -m swinvox_tpu_torch.cli.runner [--batch-size B] [--epoch E] \
+      [--n-views N] [--weights W.ckpt] [--rand] [--set KEY=VALUE ...] \
+      [--config JSON] [--dataset-root DIR] [--out DIR] [--platform cpu|cuda]
   python -m swinvox_tpu_torch.cli.runner --test --weights W.ckpt \
       [--n-views N] [--set KEY=VALUE ...] [--config JSON] \
       [--dataset-root DIR] [--out DIR] [--platform cpu|cuda]
 
-``--weights`` takes a JAX checkpoint file (full or params-only).  The
-evaluation batch is ``TEST.EVAL_BATCH_SIZE`` (``--set
-TEST.EVAL_BATCH_SIZE=N``); the JAX runner's ``--batch-size`` sets the
-training batch and comes with training.  The model runs on ``cuda``
-unless ``--platform`` names another device (``--platform cpu`` for a
-host-only run); there is no silent fallback.
-Training (the runner without ``--test``), the LR finder and tuning are
-not ported yet and exit with an error.
+Without ``--test`` it trains (``train_net``): ``--batch-size`` sets the
+training batch ``CONST.BATCH_SIZE``, ``--epoch`` ``TRAIN.NUM_EPOCHS``,
+``--rand`` draws ``CONST.RNG_SEED`` from the clock, and ``--weights``
+resumes from a checkpoint (it sets ``TRAIN.RESUME_TRAIN``, as the JAX
+runner does).  With ``--test`` it evaluates the checkpoint ``--weights``
+(``test_net``) in batches of ``TEST.EVAL_BATCH_SIZE`` (``--set
+TEST.EVAL_BATCH_SIZE=N``); ``--batch-size`` is refused there, so it is
+never silently ignored.  Checkpoints are either package's files (full or
+params-only).  The model runs on ``cuda`` unless ``--platform`` names
+another device (``--platform cpu`` for a host-only run); there is no
+silent fallback.  The LR finder (``--lr_find``) and tuning (``--tune``)
+are not ported and exit with an error.
 """
 
 from __future__ import annotations
@@ -21,12 +29,24 @@ import json
 import logging
 import os
 import sys
+import time
 
 
 def get_args_from_command_line(argv=None):
     parser = argparse.ArgumentParser(description="SwinVox runner (PyTorch)")
     parser.add_argument("--test", dest="test", action="store_true",
                         help="test neural networks")
+    parser.add_argument("--rand", dest="randomize", action="store_true",
+                        help="randomize seed")
+    parser.add_argument("--batch-size", dest="batch_size", default=None,
+                        type=int, help="training batch (CONST.BATCH_SIZE)")
+    parser.add_argument("--epoch", dest="epoch", default=None, type=int,
+                        help="number of epochs")
+    parser.add_argument("--lr_find", dest="lr_find", action="store_true",
+                        help="run the learning-rate finder (not ported)")
+    parser.add_argument("--optuna_tune", "--tune", dest="tune",
+                        action="store_true",
+                        help="run hyperparameter tuning (not ported)")
     parser.add_argument("--weights", dest="weights", default=None,
                         help="initialize network from a checkpoint")
     parser.add_argument("--out", dest="out_path", default=None,
@@ -68,12 +88,24 @@ def build_config(args):
             root, "ShapeNetRendering/%s/%s/rendering/%02d.png")
         paths.VOXEL_PATH = os.path.join(root,
                                         "ShapeNetVox32/%s/%s/model.binvox")
+    if args.batch_size is not None:
+        if args.test:
+            raise SystemExit("--batch-size sets the training batch; the "
+                             "evaluation batch is --set "
+                             "TEST.EVAL_BATCH_SIZE=N")
+        cfg.CONST.BATCH_SIZE = args.batch_size
+    if args.epoch is not None:
+        cfg.TRAIN.NUM_EPOCHS = args.epoch
     if args.n_views is not None:
         cfg.CONST.N_VIEWS_RENDERING = args.n_views
     if args.out_path is not None:
         cfg.DIR.OUT_PATH = args.out_path
     if args.weights is not None:
         cfg.CONST.WEIGHTS = args.weights
+        if not args.test:
+            cfg.TRAIN.RESUME_TRAIN = True
+    if args.randomize:
+        cfg.CONST.RNG_SEED = int(time.time()) % (2**31)
     for ov in args.overrides:
         if "=" not in ov:
             raise SystemExit(f"--set expects KEY=VALUE, got {ov!r}")
@@ -95,15 +127,20 @@ def main(argv=None) -> int:
     args = get_args_from_command_line(argv)
     cfg = build_config(args)
     cfg.validate()
-    if not args.test:
-        logging.error("training (train_net) is not ported yet; use --test")
+    if args.lr_find or args.tune:
+        logging.error("the LR finder and tuning are not ported yet")
         return 2
-    if not cfg.CONST.WEIGHTS:
-        logging.error("Please specify the file path of checkpoint!")
-        return 2
-    from swinvox_tpu_torch.train.trainer import test_net
+    if args.test:
+        if not cfg.CONST.WEIGHTS:
+            logging.error("Please specify the file path of checkpoint!")
+            return 2
+        from swinvox_tpu_torch.train.trainer import test_net
 
-    test_net(cfg, device=args.platform)
+        test_net(cfg, device=args.platform)
+        return 0
+    from swinvox_tpu_torch.train.trainer import train_net
+
+    train_net(cfg, device=args.platform)
     return 0
 
 

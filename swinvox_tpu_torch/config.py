@@ -1,25 +1,27 @@
 """Serving, training and evaluation configuration of the port.
 
 The fields of ``swinvox_tpu.config.Config`` that the serving path, the
-training step and the evaluation entry point (``test_net``, the ShapeNet
-test loader, the runner) read, under the same names, in the same
-sections, with the same defaults (``tests/test_torch_serve.py`` holds
-them equal), and the JAX ``Config``'s ``set``/``update``/``validate``.
-Anything with these attributes works where a ``Config`` is taken, the JAX
-package's own ``Config`` included, so one config can drive both packages.
+training entry point (``train_net``, the train and validation loaders and
+transforms, the runner) and the evaluation entry point (``test_net``)
+read, under the same names, in the same sections, with the same defaults
+(``tests/test_torch_serve.py`` holds them equal), and the JAX
+``Config``'s ``set``/``update``/``validate``.  Anything with these
+attributes works where a ``Config`` is taken, the JAX package's own
+``Config`` included, so one config can drive both packages.
 
-The Pascal3D and Pix3D paths, the training data set and augmentation
-fields, LR-finder and mesh fields stay in the JAX package until the
-modules that read them are ported, as do the flags that pick between XLA
-formulations of one function (``USE_BAND2D_MERGER``,
-``REFINER_UNROLLED_CONV``, ``TRAIN.FUSED_OPTIMIZER``: the port has one
-formulation each) and ``TRAIN.DEVICE_AUGMENT``, which the training data
-pipeline reads.
+The Pascal3D and Pix3D paths, LR-finder and mesh fields and
+``DIR.PROFILE_DIR`` stay in the JAX package until the modules that read
+them are ported, as do the flags that pick between XLA formulations of
+one function (``USE_BAND2D_MERGER``, ``REFINER_UNROLLED_CONV``,
+``TRAIN.FUSED_OPTIMIZER``: the port has one formulation each).
+``TRAIN.DEVICE_AUGMENT`` is here so a config can name it, but the device
+augmentation is not ported: ``train_net`` refuses it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Tuple
 
@@ -52,12 +54,15 @@ class ConstConfig:
 @dataclass
 class DirConfig:
     OUT_PATH: str = "./output"
+    # a folder of background images for the train transform (optional)
+    RANDOM_BG_PATH: str = ""
 
 
 @dataclass
 class DatasetConfig:
     MEAN: Tuple[float, float, float] = (0.5, 0.5, 0.5)
     STD: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+    TRAIN_DATASET: str = "ShapeNet"
     TEST_DATASET: str = "ShapeNet"
 
 
@@ -80,8 +85,8 @@ class NetworkConfig:
     USE_PALLAS_WINDOW_ATTENTION: bool = True
     # kernel I (csrc/merger_stack.cu) for the merger stack at inference
     USE_PALLAS_MERGER: bool = False
-    # training-path merger kernels of the JAX package not ported yet
-    # (banded and slab convs); from_config refuses them
+    # kernels J and K (csrc/merger_conv.cu) for each merger conv: the
+    # banded route in training, the slab route in training and inference
     USE_PALLAS_MERGER_TRAIN: bool = False
     USE_SLAB_MERGER: bool = False
     # kernels E and F (csrc/merger_stack.cu) for the training merger stack
@@ -89,7 +94,8 @@ class NetworkConfig:
     USE_MERGER_STACK: bool = True
     MERGER_STACK_MAX_VOLUMES: int = 64
     MERGER_SINGLE_VIEW_IDENTITY: bool = True
-    # the fused backward of that conv (not ported; from_config refuses it)
+    # kernel L (csrc/down1.cu), the fused backward of the refiner's first
+    # conv
     REFINER_DOWN1_PALLAS: bool = False
     # kernel B (csrc/swin_block.cu) for every Swin block
     USE_PALLAS_SWIN_BLOCK: bool = True
@@ -138,6 +144,9 @@ class TrainConfig:
     LOG_EVERY: int = 10
     # sequential micro-batches per step, gradients averaged
     GRAD_ACCUM_STEPS: int = 1
+    # the JAX package's on-device augmentation: not ported, train_net
+    # refuses it
+    DEVICE_AUGMENT: bool = False
 
 
 @dataclass
@@ -163,6 +172,9 @@ class Config:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def to_json(self, **kwargs: Any) -> str:
+        return json.dumps(self.to_dict(), indent=2, **kwargs)
 
     def update(self, overrides: dict) -> "Config":
         """Recursively applies a nested dict of overrides in place."""

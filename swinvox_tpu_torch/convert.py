@@ -26,7 +26,13 @@ for a checkpoint the JAX package can read.
 ``load_jax_train_state`` carries a whole JAX ``TrainState`` across: the
 variables as above, each module's optimizer state (Adam's ``mu``, ``nu``
 and ``count``, or SGD's ``trace``, laid out as the parameters they
-shadow) and the step, so both packages can continue from one state.
+shadow) and the step, so both packages can continue from one state.  It
+takes the live state (optax's named tuples) or the state-dict form a JAX
+checkpoint file holds; ``jax_train_state`` writes that form from the
+port's state.  In the file, each module's optax chain (clip, decay, Adam
+or SGD) is a dict keyed ``"0"``, ``"1"``, ``"2"``: the first two are
+empty, the third holds ``count`` (an int32 scalar), ``mu`` and ``nu``, or
+``trace``; ``step`` is an int.
 """
 
 from __future__ import annotations
@@ -126,6 +132,27 @@ def to_jax_layout(owner: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def _jax_leaf(model: nn.Module, name: str, tensor: torch.Tensor
+              ) -> Tuple[str, list, np.ndarray]:
+    """(collection, flax path, numpy array in the JAX layout) of a port
+    tensor, or of a tensor shaped like it (an optimizer moment)."""
+    owner_name, _, leaf = name.rpartition(".")
+    owner = model.get_submodule(owner_name)
+    path = owner_name.split(".") if owner_name else []
+    path += [w for cls, w in _WRAPPER_OF if isinstance(owner, cls)]
+    coll = ("batch_stats" if isinstance(owner, Norm)
+            and leaf in ("mean", "var") else "params")
+    arr = tensor.detach().cpu().float().numpy()
+    return coll, path + [leaf], np.ascontiguousarray(
+        to_jax_layout(owner, leaf, arr))
+
+
+def _put(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
 def jax_variables(model: nn.Module) -> Dict[str, dict]:
     """The port module's weights as the flax ``{"params", "batch_stats"}``
     tree (numpy, JAX layout): each tensor under its owner's flax path,
@@ -133,17 +160,33 @@ def jax_variables(model: nn.Module) -> Dict[str, dict]:
     statistics go to ``batch_stats``."""
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for name, tensor in model.state_dict().items():
-        owner_name, _, leaf = name.rpartition(".")
-        owner = model.get_submodule(owner_name)
-        path = owner_name.split(".") if owner_name else []
-        path += [w for cls, w in _WRAPPER_OF if isinstance(owner, cls)]
-        coll = ("batch_stats" if isinstance(owner, Norm)
-                and leaf in ("mean", "var") else "params")
-        node = out[coll]
-        for key in path:
-            node = node.setdefault(key, {})
-        arr = tensor.detach().cpu().float().numpy()
-        node[leaf] = np.ascontiguousarray(to_jax_layout(owner, leaf, arr))
+        coll, path, arr = _jax_leaf(model, name, tensor)
+        _put(out[coll], path, arr)
+    return out
+
+
+def jax_train_state(state) -> Dict[str, object]:
+    """The port's ``TrainState`` in the state-dict form of a JAX full
+    checkpoint: ``{params, batch_stats, opt_states, step}``, numpy leaves
+    in the JAX layout; each module's optimizer state as the optax chain
+    ``{"0": {}, "1": {}, "2": {count, mu, nu} | {trace}}``."""
+    model = state.model
+    out: Dict[str, object] = dict(jax_variables(model))
+    opt_states = {}
+    for module, ours in state.opt_states.items():
+        inner: Dict[str, object] = {}
+        for kind in ("mu", "nu", "trace"):
+            if kind in ours:
+                tree: dict = {}
+                for name, t in ours[kind].items():
+                    _, path, arr = _jax_leaf(model, name, t)
+                    _put(tree, path[1:], arr)  # under the module's key
+                inner[kind] = tree
+        if "count" in ours:
+            inner["count"] = np.asarray(ours["count"], np.int32)
+        opt_states[module] = {"0": {}, "1": {}, "2": inner}
+    out["opt_states"] = opt_states
+    out["step"] = int(state.step)
     return out
 
 
@@ -162,21 +205,44 @@ def tree_to_torch(tree: Mapping, model: nn.Module, prefix: Tuple[str, ...] = ()
     return out
 
 
+def _chain_inner(opt) -> Dict[str, object]:
+    """The Adam or SGD state of one module's optax chain, as a dict: from
+    the live tuple of named tuples or from a checkpoint's ``{"0": ...}``
+    form."""
+    parts = opt.values() if isinstance(opt, Mapping) else opt
+    for part in parts:
+        d = part if isinstance(part, Mapping) else (
+            part._asdict() if hasattr(part, "_asdict") else {})
+        if "mu" in d or "trace" in d:
+            return dict(d)
+    raise ValueError("optimizer state has neither Adam moments nor a trace")
+
+
 def load_jax_train_state(state, jax_state) -> None:
     """Copies a JAX ``TrainState`` (params, batch_stats, per-module optax
-    states, step; leaves as arrays) into the port's ``TrainState``."""
+    states, step; leaves as arrays), or the state-dict form of a full JAX
+    checkpoint (a mapping with those keys), into the port's
+    ``TrainState``."""
+    if isinstance(jax_state, Mapping):
+        params, batch_stats = jax_state["params"], jax_state["batch_stats"]
+        opt_states, step = jax_state["opt_states"], jax_state["step"]
+    else:
+        params, batch_stats = jax_state.params, jax_state.batch_stats
+        opt_states, step = jax_state.opt_states, jax_state.step
     model = state.model
-    load_jax_variables(model, {"params": jax_state.params,
-                               "batch_stats": jax_state.batch_stats})
-    for module, opt in jax_state.opt_states.items():
-        if module not in state.opt_states:
-            raise ValueError(f"no optimizer state for module {module!r}")
+    load_jax_variables(model, {"params": params, "batch_stats": batch_stats})
+    if set(opt_states) != set(state.opt_states):
+        raise ValueError(f"optimizer states for {sorted(opt_states)}, the "
+                         f"port has {sorted(state.opt_states)}")
+    for module, opt in opt_states.items():
         ours = state.opt_states[module]
-        # the optax chain's states: (clip, decay, adam-or-trace)
-        inner = next(s for s in opt if hasattr(s, "mu") or hasattr(s, "trace"))
-        kinds = ("mu", "nu") if hasattr(inner, "mu") else ("trace",)
+        inner = _chain_inner(opt)
+        kinds = ("mu", "nu") if "mu" in inner else ("trace",)
+        if set(kinds) != set(ours) - {"count"}:
+            raise ValueError(f"{module}: optimizer state {sorted(inner)} "
+                             f"does not fit the port's {sorted(ours)}")
         for kind in kinds:
-            src = tree_to_torch(getattr(inner, kind), model, (module,))
+            src = tree_to_torch(inner[kind], model, (module,))
             dst = ours[kind]
             if set(src) != set(dst):
                 raise ValueError(f"{module}.{kind}: moment names do not "
@@ -184,6 +250,6 @@ def load_jax_train_state(state, jax_state) -> None:
             with torch.no_grad():
                 for name, t in dst.items():
                     t.copy_(src[name])
-        if hasattr(inner, "count"):
-            ours["count"] = int(np.asarray(inner.count))
-    state.step = int(np.asarray(jax_state.step))
+        if "count" in inner:
+            ours["count"] = int(np.asarray(inner["count"]))
+    state.step = int(np.asarray(step))

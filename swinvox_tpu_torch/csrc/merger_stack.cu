@@ -15,18 +15,18 @@
 //   a_4 and its raw output is the stack's result raw5.
 //
 // Kernel E is 12 launches: per layer one direct-conv launch and one
-// single-block statistics launch.  A conv block owns one volume's (d,
-// 16-row half plane): it loads the 3 x 18 x 34 input halo of its source
-// into shared memory as f32, normalizing on read (the previous layer's
-// affine from the statistics buffer, LeakyReLU, bf16 rounding — the
-// activation a_l is never stored), loads the 27 x C_in x C_out weights,
-// and each thread computes all output channels of two voxels with f32
-// FMAs (of bf16 values, so every product is exact, as in a bf16
-// tensor-core product).  The
-// block's per-channel sum and sum of squares of its bf16 outputs go to a
-// partial that the statistics launch sums in a fixed order.  Layer 4
-// accumulates its four 9-channel sources in registers, one halo load at a
-// time.
+// single-block statistics launch.  The direct conv and the weight-grad
+// body live in merger_common.cuh (shared with kernels J and K).  A conv
+// block owns one volume's (d, 16-row half plane): it loads the 3 x 18 x
+// 34 input halo of its source into shared memory as f32, normalizing on
+// read (the previous layer's affine from the statistics buffer,
+// LeakyReLU, bf16 rounding — the activation a_l is never stored), loads
+// the 27 x C_in x C_out weights, and each thread computes all output
+// channels of two voxels with f32 FMAs (of bf16 values, so every product
+// is exact, as in a bf16 tensor-core product).  The block's per-channel
+// sum and sum of squares of its bf16 outputs go to a partial that the
+// statistics launch sums in a fixed order.  Layer 4 accumulates its four
+// 9-channel sources in registers, one halo load at a time.
 //
 // Kernel F walks layers 5 to 0.  For a BatchNorm layer l, with dA_l the
 // gradient arriving at a_l (f32, accumulated from every consumer):
@@ -59,188 +59,14 @@
 // The C entry points return the first nonzero cudaGetLastError() of their
 // launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "merger_common.cuh"
 
 namespace {
 
-constexpr int S = 32;                // volume side
-constexpr int V3 = S * S * S;        // voxels per volume
-constexpr int TH = 16;               // output rows (h) per block
-constexpr int TD = 3, TR = TH + 2, TW = S + 2;  // halo tile
-constexpr int TILE = TD * TR * TW;   // positions in a halo tile
-constexpr int THREADS = 256;
-constexpr int WG_PLANES = 4;         // d planes per weight-grad block
 constexpr int STAT_THREADS = 256;
 
 // packed bf16 DHWIO weights of the six layers
 constexpr int W_OFF[7] = {0, 2187, 4374, 6561, 8748, 17496, 17739};
-
-enum Mode { FWD = 0, ADJ_INIT = 1, ADJ_ACC = 2, ADJ_DX = 3, INFER = 4 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Loads the halo tile of one 9- or 1-channel source around plane d, rows
-// [h0 - 1, h0 + TH + 1), as f32; `aff` (null: raw) holds the previous
-// layer's normalize scale [9] and shift [9]; padding stays 0.
-template <int CIN>
-__device__ void load_tile(const bf16* __restrict__ src,
-                          const float* __restrict__ aff, float leaky, int n,
-                          int d, int h0, float* tile) {
-  for (int i = threadIdx.x; i < TILE * CIN; i += blockDim.x) {
-    const int ci = i % CIN, p = i / CIN;
-    const int ww = p % TW, hh = (p / TW) % TR, dd = p / (TW * TR);
-    const int gd = d + dd - 1, gh = h0 + hh - 1, gw = ww - 1;
-    float v = 0.f;
-    if (gd >= 0 && gd < S && gh >= 0 && gh < S && gw >= 0 && gw < S) {
-      const size_t vox = (((size_t)n * S + gd) * S + gh) * S + gw;
-      v = __bfloat162float(src[vox * CIN + ci]);
-      if (aff) {
-        float z = v * aff[ci] + aff[9 + ci];
-        z = z > 0.f ? z : z * leaky;
-        v = __bfloat162float(__float2bfloat16(z));
-      }
-    }
-    tile[i] = v;
-  }
-}
-
-struct ConvArgs {
-  const bf16* src[4];     // sources, CIN channels each, channels-last
-  const float* aff[4];    // their normalize affine, or null
-  const bf16* w;          // this layer's DHWIO kernel [27][Cin][Cout]
-  const float* bias;      // FWD: [COUT]
-  const float* fold;      // INFER: folded BatchNorm scale [9], shift [9]
-  void* dst[4];           // FWD: bf16 [V][COUT]; ADJ_*: f32 [V][9] x COUT/9;
-                          // ADJ_DX: bf16 [V][9]; INFER: bf16 [V][9], or
-                          // f32 [V] for the 1-channel last layer
-  float* partial;         // FWD: [blocks][2][COUT] sums of r and r^2
-  float leaky;
-};
-
-// Direct 3x3x3 conv, one block per (volume, d, half plane), two output
-// voxels per thread.  FWD: the layer's conv of NSRC sources with CIN
-// channels each into COUT channels.  INFER: the same conv followed by the
-// folded inference BatchNorm and LeakyReLU (kernel I).  ADJ_*: the input gradient of a layer
-// whose forward maps COUT channels to CIN: the conv of dr (CIN channels)
-// with the flipped, channel-swapped kernel into COUT channels.
-template <int CIN, int NSRC, int COUT, int MODE>
-__global__ void __launch_bounds__(THREADS) mstack_conv_kernel(ConvArgs a) {
-  constexpr int CT = CIN * NSRC;  // input channels of this conv
-  extern __shared__ __align__(16) float sm[];
-  float* ws = sm;                     // [27][CT][COUT]
-  float* tile = sm + 27 * CT * COUT;  // [TILE][CIN]
-  const int blk = blockIdx.x;
-  const int n = blk / (2 * S), d = (blk / 2) % S, h0 = (blk % 2) * TH;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < 27 * CT * COUT; i += THREADS) {
-    if (MODE == FWD || MODE == INFER) {
-      ws[i] = __bfloat162float(a.w[i]);
-    } else {  // forward kernel [27][COUT][CT] -> flipped, swapped
-      const int t = i / (CT * COUT), ci = (i / COUT) % CT, co = i % COUT;
-      ws[i] = __bfloat162float(a.w[((26 - t) * COUT + co) * CT + ci]);
-    }
-  }
-  const int w = tid % 32, r0 = tid / 32;  // rows r0 and r0 + 8
-  float acc0[COUT], acc1[COUT];
-#pragma unroll
-  for (int co = 0; co < COUT; ++co) acc0[co] = acc1[co] = 0.f;
-
-  for (int s = 0; s < NSRC; ++s) {
-    __syncthreads();
-    load_tile<CIN>(a.src[s], a.aff[s], a.leaky, n, d, h0, tile);
-    __syncthreads();
-    for (int t = 0; t < 27; ++t) {
-      const int kd = t / 9, kh = (t / 3) % 3, kw = t % 3;
-      const float* p0 = tile + ((kd * TR + r0 + kh) * TW + w + kw) * CIN;
-      const float* p1 = p0 + 8 * TW * CIN;
-      const float* wt = ws + (t * CT + s * CIN) * COUT;
-#pragma unroll
-      for (int ci = 0; ci < CIN; ++ci) {
-        const float x0 = p0[ci], x1 = p1[ci];
-#pragma unroll
-        for (int co = 0; co < COUT; ++co) {
-          const float wv = wt[ci * COUT + co];
-          acc0[co] = fmaf(x0, wv, acc0[co]);
-          acc1[co] = fmaf(x1, wv, acc1[co]);
-        }
-      }
-    }
-  }
-
-  const size_t v0 = (((size_t)n * S + d) * S + h0 + r0) * S + w;
-  const size_t v1 = v0 + 8 * S;
-  if (MODE == FWD) {
-    __shared__ float red[THREADS / 32][2 * 9];
-    bf16* dst = static_cast<bf16*>(a.dst[0]);
-    const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) {
-      const bf16 q0 = __float2bfloat16(acc0[co] + a.bias[co]);
-      const bf16 q1 = __float2bfloat16(acc1[co] + a.bias[co]);
-      dst[v0 * COUT + co] = q0;
-      dst[v1 * COUT + co] = q1;
-      const float f0 = __bfloat162float(q0), f1 = __bfloat162float(q1);
-      const float s1 = warp_sum(f0 + f1);
-      const float s2 = warp_sum(f0 * f0 + f1 * f1);
-      if (lane == 0) {
-        red[warp][co] = s1;
-        red[warp][9 + co] = s2;
-      }
-    }
-    __syncthreads();
-    if (tid < 2 * COUT) {
-      const int k = tid / COUT, co = tid % COUT;
-      float sum = 0.f;
-      for (int i = 0; i < THREADS / 32; ++i) sum += red[i][9 * k + co];
-      a.partial[((size_t)blk * 2 + k) * COUT + co] = sum;
-    }
-  } else if (MODE == INFER) {
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) {
-      float z0 = acc0[co] * a.fold[co] + a.fold[9 + co];
-      float z1 = acc1[co] * a.fold[co] + a.fold[9 + co];
-      z0 = z0 >= 0.f ? z0 : z0 * a.leaky;
-      z1 = z1 >= 0.f ? z1 : z1 * a.leaky;
-      if (COUT == 1) {
-        static_cast<float*>(a.dst[0])[v0] = z0;
-        static_cast<float*>(a.dst[0])[v1] = z1;
-      } else {
-        static_cast<bf16*>(a.dst[0])[v0 * COUT + co] = __float2bfloat16(z0);
-        static_cast<bf16*>(a.dst[0])[v1 * COUT + co] = __float2bfloat16(z1);
-      }
-    }
-  } else if (MODE == ADJ_DX) {
-    bf16* dst = static_cast<bf16*>(a.dst[0]);
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) {
-      dst[v0 * COUT + co] = __float2bfloat16(acc0[co]);
-      dst[v1 * COUT + co] = __float2bfloat16(acc1[co]);
-    }
-  } else {
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) {
-      float* dst = static_cast<float*>(a.dst[co / 9]);
-      const int c = co % 9;
-      if (MODE == ADJ_INIT) {
-        dst[v0 * 9 + c] = acc0[co];
-        dst[v1 * 9 + c] = acc1[co];
-      } else {
-        dst[v0 * 9 + c] += acc0[co];
-        dst[v1 * 9 + c] += acc1[co];
-      }
-    }
-  }
-}
 
 // Per-layer statistics from the conv blocks' partials (one block):
 // stats[0] mean, [1] biased variance, and for a BatchNorm layer [2] the
@@ -390,125 +216,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// out[i] = sum_b partial[b * n + i], in order.
-__global__ void mstack_reduce_kernel(const float* __restrict__ partial,
-                                     int blocks,
-                              int n, float* __restrict__ out) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += partial[(size_t)b * n + i];
-    out[i] = s;
-  }
-}
-
-struct WgradArgs {
-  const bf16* src[4];   // the layer's input sources (pre-normalization)
-  const float* aff[4];  // their normalize affine, or null
-  const bf16* dr;       // [V][COUT] bf16
-  float* partial;       // [blocks][27][CIN * NSRC][COUT]
-  float leaky;
-};
-
-// dW partial of one block (a volume's WG_PLANES d planes, one half plane
-// of rows): thread (tap, ci) sums a[v + tap][ci] * dr[v][co] over the
-// block's voxels for every co and source.
-template <int CIN, int NSRC, int COUT>
-__global__ void __launch_bounds__(THREADS) mstack_wgrad_kernel(WgradArgs a) {
-  constexpr int CT = CIN * NSRC;
-  extern __shared__ __align__(16) float sm[];
-  float* drt = sm;                     // [TH * S][COUT]
-  float* tile = sm + TH * S * COUT;    // [TILE][CIN]
-  const int planes = S / WG_PLANES;
-  const int blk = blockIdx.x;
-  const int n = blk / (2 * planes), d0 = ((blk / 2) % planes) * WG_PLANES;
-  const int h0 = (blk % 2) * TH;
-  const int tid = threadIdx.x;
-  const bool active = tid < 27 * CIN;
-  const int t = tid / CIN, ci = tid % CIN;
-  const int kd = t / 9, kh = (t / 3) % 3, kw = t % 3;
-  float acc[NSRC][COUT];
-#pragma unroll
-  for (int s = 0; s < NSRC; ++s)
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) acc[s][co] = 0.f;
-
-  for (int d = d0; d < d0 + WG_PLANES; ++d) {
-    __syncthreads();
-    for (int i = tid; i < TH * S * COUT; i += THREADS) {
-      const int co = i % COUT, p = i / COUT;
-      const size_t vox = (((size_t)n * S + d) * S + h0 + p / S) * S + p % S;
-      drt[i] = __bfloat162float(a.dr[vox * COUT + co]);
-    }
-#pragma unroll
-    for (int s = 0; s < NSRC; ++s) {
-      __syncthreads();
-      load_tile<CIN>(a.src[s], a.aff[s], a.leaky, n, d, h0, tile);
-      __syncthreads();
-      if (active) {
-        for (int hh = 0; hh < TH; ++hh) {
-          const float* row = tile + ((kd * TR + hh + kh) * TW + kw) * CIN + ci;
-          const float* g = drt + hh * S * COUT;
-          for (int ww = 0; ww < S; ++ww) {
-            const float x = row[ww * CIN];
-#pragma unroll
-            for (int co = 0; co < COUT; ++co)
-              acc[s][co] = fmaf(x, g[ww * COUT + co], acc[s][co]);
-          }
-        }
-      }
-    }
-  }
-  if (active) {
-    float* part = a.partial + (size_t)blk * 27 * CT * COUT;
-#pragma unroll
-    for (int s = 0; s < NSRC; ++s)
-#pragma unroll
-      for (int co = 0; co < COUT; ++co)
-        part[(t * CT + s * CIN + ci) * COUT + co] = acc[s][co];
-  }
-}
-
-// ---------------------------------------------------------------- launch
-
-size_t conv_smem(int cin, int nsrc, int cout) {
-  return sizeof(float) * (27 * cin * nsrc * cout + TILE * cin);
-}
-
-size_t wgrad_smem(int cin, int cout) {
-  return sizeof(float) * (TH * S * cout + TILE * cin);
-}
-
-template <int CIN, int NSRC, int COUT, int MODE>
-int conv(const ConvArgs& a, int n, cudaStream_t s) {
-  const size_t smem = conv_smem(CIN, NSRC, COUT);
-  int err = (int)cudaFuncSetAttribute(
-      mstack_conv_kernel<CIN, NSRC, COUT, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  mstack_conv_kernel<CIN, NSRC, COUT, MODE>
-      <<<n * 2 * S, THREADS, smem, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <int CIN, int NSRC, int COUT>
-int wgrad(const WgradArgs& a, int n, float* out, cudaStream_t s) {
-  const size_t smem = wgrad_smem(CIN, COUT);
-  int err = (int)cudaFuncSetAttribute(
-      mstack_wgrad_kernel<CIN, NSRC, COUT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  const int blocks = n * 2 * (S / WG_PLANES);
-  mstack_wgrad_kernel<CIN, NSRC, COUT><<<blocks, THREADS, smem, s>>>(a);
-  if ((err = (int)cudaGetLastError())) return err;
-  const int total = 27 * CIN * NSRC * COUT;
-  mstack_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(a.partial, blocks,
-                                                           total,
-                                                    out);
-  return (int)cudaGetLastError();
-}
-
-size_t align256(size_t b) { return (b + 255) / 256 * 256; }
 
 long long fwd_partial_floats(long long n) { return n * 2 * S * 2 * 9; }
 

@@ -1,34 +1,48 @@
-"""Host data pipeline of evaluation: decode, transform, batch, prefetch.
+"""Host data pipeline: decode, transform, batch, prefetch.
 
-Counterpart of the test split of ``swinvox_tpu/data/pipeline.py``: a
+Counterpart of ``swinvox_tpu/data/pipeline.py`` for one process (its
+multi-host sharding and device augmentation are not ported): a
 thread-pool producer decodes samples (PNG decode and numpy transforms
 release the GIL) into batches that a bounded queue keeps ahead of the
-consumer.  Test and validation samples take their first N views in file
-order (reference ``utils/data_loaders.py:61-67``); images decode to
-float32 BGR(A) / 255 and go through the eval transform.  The training
-split (random views, augmentation, device augmentation) and multi-host
-sharding come with ``train_net``.
+consumer.  Images decode to float32 BGR(A) / 255.
+
+Views (reference ``utils/data_loaders.py:61-67``): each sample draws its
+own generator ``default_rng(SeedSequence([seed, epoch, idx]))``; the
+train split chooses ``n_views`` of the sample's renderings without
+replacement from it and feeds the same generator to the train transform
+(and, with ``DIR.RANDOM_BG_PATH``, to the choice of a background image
+first); validation and test take the first ``n_views`` in file order
+through the eval transform.  The train loader shuffles with
+``default_rng(SeedSequence([seed, epoch]))`` and drops the last partial
+batch; ``set_epoch`` and ``set_n_views`` move both, so a resumed run
+draws what an uninterrupted one draws.
+
+An iteration's producer thread and its pool stop when the iterator is
+closed, garbage-collected or raises, or when ``BatchLoader.close`` is
+called (``train_net`` closes its loaders in a ``finally``).
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from swinvox_tpu_torch.data import eval_transform, load_image_bgr
+from swinvox_tpu_torch.data import load_image_bgr
 from swinvox_tpu_torch.data.binvox import read_as_3d_array
 from swinvox_tpu_torch.data.taxonomy import (
     DATASET_INDEX_MAPPING,
     DatasetType,
     SampleRecord,
 )
+from swinvox_tpu_torch.data.transforms import eval_transform, train_transform
 
 log = logging.getLogger(__name__)
 
@@ -48,29 +62,59 @@ class Batch:
 
 
 class VoxelDataset:
-    """Decoded and transformed samples of an evaluation split."""
+    """Decoded and transformed samples of one split."""
 
     def __init__(self, records: Sequence[SampleRecord], split: DatasetType,
-                 n_views: int, cfg):
-        if split == DatasetType.TRAIN:
-            raise NotImplementedError(
-                "the training split (random views, augmentation) is not "
-                "ported yet")
+                 n_views: int, cfg, train_augment: bool = False,
+                 seed: int = 0):
         self.records = list(records)
         self.split = split
         self.n_views = n_views
         self.cfg = cfg
+        self.train_augment = train_augment
+        self.seed = seed
+        self.bg_files: List[str] = []
+        if train_augment and cfg.DIR.RANDOM_BG_PATH:
+            root = cfg.DIR.RANDOM_BG_PATH
+            try:
+                self.bg_files = [os.path.join(root, f)
+                                 for f in sorted(os.listdir(root))]
+            except OSError:
+                log.warning("RANDOM_BG_PATH %s unreadable; using solid "
+                            "colors", root)
 
     def __len__(self) -> int:
         return len(self.records)
 
-    def load(self, idx: int) -> Tuple[str, str, np.ndarray, np.ndarray]:
+    def set_n_views(self, n_views: int) -> None:
+        self.n_views = n_views
+
+    def _select_views(self, rec: SampleRecord, idx: int, epoch: int
+                      ) -> Tuple[np.random.Generator, List[str]]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch, idx]))
+        if self.split == DatasetType.TRAIN:
+            chosen = rng.choice(len(rec.image_paths), size=self.n_views,
+                                replace=False)
+            return rng, [rec.image_paths[i] for i in chosen]
+        return rng, rec.image_paths[: self.n_views]
+
+    def load(self, idx: int, epoch: int = 0
+             ) -> Tuple[str, str, np.ndarray, np.ndarray]:
         rec = self.records[idx]
-        paths = rec.image_paths[: self.n_views]
+        rng, paths = self._select_views(rec, idx, epoch)
         images = np.stack([load_image_bgr(p) for p in paths])
-        images = eval_transform(images, self.cfg, rec.bounding_box)
-        return (rec.taxonomy_id, rec.sample_name, images,
-                load_volume(rec.volume_path))
+        volume = load_volume(rec.volume_path)
+        if self.train_augment:
+            bg_image = None
+            if self.bg_files:
+                bg_image = load_image_bgr(
+                    self.bg_files[int(rng.integers(len(self.bg_files)))])
+            images = train_transform(images, self.cfg, rng, rec.bounding_box,
+                                     bg_image=bg_image)
+        else:
+            images = eval_transform(images, self.cfg, rec.bounding_box)
+        return rec.taxonomy_id, rec.sample_name, images, volume
 
 
 def _put_unless_stopped(q: "queue.Queue", item, stop: threading.Event) -> bool:
@@ -85,29 +129,63 @@ def _put_unless_stopped(q: "queue.Queue", item, stop: threading.Event) -> bool:
 
 
 class BatchLoader:
-    """In-order batch iterator over a VoxelDataset: a thread pool decodes
-    samples and a bounded queue keeps ``prefetch`` batches ready."""
+    """Batch iterator over a VoxelDataset: a thread pool decodes samples
+    and a bounded queue keeps ``prefetch`` batches ready; shuffled by
+    ``(seed, epoch)`` and without the last partial batch when asked."""
 
     def __init__(self, dataset: VoxelDataset, batch_size: int,
-                 num_workers: int = 8, prefetch: int = 4):
+                 shuffle: bool = False, drop_last: bool = False,
+                 num_workers: int = 8, prefetch: int = 4, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
+        self.seed = seed
+        self.epoch = 0
+        self._live: List[Tuple[threading.Event, threading.Thread]] = []
+        self._live_lock = threading.Lock()
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
 
-    def __iter__(self) -> Iterator[Batch]:
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _batch_indices(self) -> List[np.ndarray]:
         order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(
+                np.random.SeedSequence([self.seed, self.epoch])).shuffle(order)
         batches = [order[i:i + self.batch_size]
                    for i in range(0, len(order), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        return batches
+
+    def close(self) -> None:
+        """Stops every iteration still running and joins its producer."""
+        with self._live_lock:
+            live, self._live = self._live, []
+        for stop, thread in live:
+            stop.set()
+        for stop, thread in live:
+            if thread is not threading.current_thread():
+                thread.join()
+
+    def __iter__(self) -> Iterator[Batch]:
+        batches = self._batch_indices()
+        epoch = self.epoch
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def assemble(idxs: np.ndarray) -> Batch:
             tax, names, images, volumes = zip(
-                *(self.dataset.load(int(i)) for i in idxs))
+                *(self.dataset.load(int(i), epoch) for i in idxs))
             return Batch(list(tax), list(names), np.stack(images),
                          np.stack(volumes))
 
@@ -119,26 +197,28 @@ class BatchLoader:
                 pending = collections.deque()
                 it = iter(batches)
                 try:
-                    while True:
+                    while not stop.is_set():
                         while len(pending) < window:
                             b = next(it, None)
                             if b is None:
                                 break
                             pending.append(pool.submit(assemble, b))
                         if not pending:
-                            break
+                            _put_unless_stopped(out_q, None, stop)
+                            return
                         result = pending.popleft().result()
-                        if stop.is_set() or not _put_unless_stopped(
-                                out_q, result, stop):
-                            for f in pending:
-                                f.cancel()
+                        if not _put_unless_stopped(out_q, result, stop):
                             return
                 except Exception as e:  # surface worker errors
                     _put_unless_stopped(out_q, e, stop)
-                    return
-            _put_unless_stopped(out_q, None, stop)
+                finally:
+                    for f in pending:
+                        f.cancel()
 
-        thread = threading.Thread(target=producer, daemon=True)
+        thread = threading.Thread(target=producer, daemon=True,
+                                  name="BatchLoader")
+        with self._live_lock:
+            self._live.append((stop, thread))
         thread.start()
         try:
             while True:
@@ -150,15 +230,31 @@ class BatchLoader:
                 yield item
         finally:
             stop.set()
+            with self._live_lock:
+                if (stop, thread) in self._live:
+                    self._live.remove((stop, thread))
 
 
-def build_loader(cfg, split: DatasetType) -> BatchLoader:
-    """Index -> dataset -> loader for an evaluation split of
-    ``DATASET.TEST_DATASET`` with ``CONST.N_VIEWS_RENDERING`` views, in
-    batches of 1 as the JAX ``build_loader`` has it outside training (the
-    evaluator regroups samples into its own batches)."""
-    index = DATASET_INDEX_MAPPING[cfg.DATASET.TEST_DATASET](cfg)
+def build_loader(cfg, split: DatasetType, n_views: Optional[int] = None,
+                 batch_size: Optional[int] = None,
+                 dataset_name: Optional[str] = None,
+                 seed: int = 0) -> BatchLoader:
+    """Index -> dataset -> loader for a split, as the JAX ``build_loader``
+    builds it: the train split of ``DATASET.TRAIN_DATASET`` in shuffled
+    batches of ``CONST.BATCH_SIZE`` without the last partial one, the
+    others of ``DATASET.TEST_DATASET`` in file order in batches of 1 (the
+    evaluator regroups samples into its own batches); ``n_views`` defaults
+    to ``CONST.N_VIEWS_RENDERING``."""
+    train = split == DatasetType.TRAIN
+    if dataset_name is None:
+        dataset_name = (cfg.DATASET.TRAIN_DATASET if train
+                        else cfg.DATASET.TEST_DATASET)
+    index = DATASET_INDEX_MAPPING[dataset_name](cfg)
     dataset = VoxelDataset(index.samples(split), split,
-                           cfg.CONST.N_VIEWS_RENDERING, cfg)
-    return BatchLoader(dataset, batch_size=1,
-                       num_workers=cfg.CONST.NUM_WORKER)
+                           n_views or cfg.CONST.N_VIEWS_RENDERING, cfg,
+                           train_augment=train, seed=seed)
+    return BatchLoader(
+        dataset, batch_size=batch_size or (cfg.CONST.BATCH_SIZE if train
+                                           else 1),
+        shuffle=train, drop_last=train, num_workers=cfg.CONST.NUM_WORKER,
+        seed=seed)

@@ -165,6 +165,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.swinvox_fused_msa.argtypes = [p] * 7 + [i] + [p] * 3 + [i64, i, i, i,
                                                                 f, p]
     lib.swinvox_fused_msa.restype = i
+    # kernel J: (x, w, y, n, cin, cout, is_bf16, stream)
+    lib.swinvox_merger_conv.argtypes = [p, p, p, i64, i, i, i, p]
+    lib.swinvox_merger_conv.restype = i
+    # kernel K: (x, dy, dw, work, work_bytes, n, cin, cout, is_bf16, stream)
+    lib.swinvox_merger_conv_wgrad_workspace.argtypes = [i64, i, i]
+    lib.swinvox_merger_conv_wgrad_workspace.restype = i64
+    lib.swinvox_merger_conv_wgrad.argtypes = [p] * 4 + [i64, i64, i, i, i, p]
+    lib.swinvox_merger_conv_wgrad.restype = i
+    # kernel L: (x, w, dy, dx, dw, work, work_bytes, n, is_bf16, stream)
+    lib.swinvox_down1_bwd_workspace.argtypes = [i64]
+    lib.swinvox_down1_bwd_workspace.restype = i64
+    lib.swinvox_down1_bwd.argtypes = [p] * 6 + [i64, i64, i, p]
+    lib.swinvox_down1_bwd.restype = i
 
 
 def library() -> ctypes.CDLL:

@@ -10,14 +10,24 @@ At one view the softmax weight is exactly 1, so the merged volume is the
 coarse volume (the JAX package's ``single_view_identity``): at inference
 the conv stack does not run, and in training it runs forward only,
 without gradient, for its BatchNorm statistics (every merger gradient is
-exactly zero there).  At inference under ``use_pallas``
-(``USE_PALLAS_MERGER``) the stack runs as
-``ops/pallas_merger.merger_view_weights`` (kernel I, BatchNorm folded from
-the running statistics).  In training the stack runs as
-``ops/pallas_merger_stack.merger_stack`` (kernels E and F) under
-``use_stack`` when the volume count B*N is a multiple of 16 and at most
-``stack_max_volumes`` — the JAX package's selection rule — and as plain
-convs with train-mode BatchNorm otherwise.
+exactly zero there).  The stack's route is chosen in the JAX order:
+
+  1. ``use_pallas`` (``USE_PALLAS_MERGER``), inference:
+     ``ops/pallas_merger.merger_view_weights`` (kernel I, BatchNorm folded
+     from the running statistics);
+  2. ``use_stack`` (``USE_MERGER_STACK``), training, when the volume count
+     B*N is a multiple of 16 and at most ``stack_max_volumes``:
+     ``ops/pallas_merger_stack.merger_stack`` (kernels E and F);
+  3. ``use_slab`` (``USE_SLAB_MERGER``), training and inference: each conv
+     through ``ops/pallas_slab_conv.slab_conv3d`` (kernels J and K) with
+     the float32 kernel;
+  4. ``use_pallas_train`` (``USE_PALLAS_MERGER_TRAIN``), training: each
+     conv through ``ops/pallas_band_conv.band_conv3d`` (kernels J and K)
+     with the kernel cast to the compute dtype;
+  5. otherwise plain convs.
+
+On routes 3 and 4 the bias, BatchNorm (train-mode batch statistics) and
+LeakyReLU stay in plain torch around the kernel, on channels-last views.
 """
 
 from __future__ import annotations
@@ -27,8 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from swinvox_tpu_torch.models.layers import Conv, Norm
+from swinvox_tpu_torch.ops.pallas_band_conv import band_conv3d
 from swinvox_tpu_torch.ops.pallas_merger import merger_view_weights
 from swinvox_tpu_torch.ops.pallas_merger_stack import merger_stack
+from swinvox_tpu_torch.ops.pallas_slab_conv import slab_conv3d
 
 _CHANNELS = ((9, 9), (9, 9), (9, 9), (9, 9), (36, 9), (9, 1))
 
@@ -36,9 +48,12 @@ _CHANNELS = ((9, 9), (9, 9), (9, 9), (9, 9), (36, 9), (9, 1))
 class Merger(nn.Module):
     def __init__(self, leaky_value: float = 0.2, dtype=torch.bfloat16,
                  single_view_identity: bool = True, use_stack: bool = False,
-                 stack_max_volumes: int = 64, use_pallas: bool = False):
+                 stack_max_volumes: int = 64, use_pallas: bool = False,
+                 use_slab: bool = False, use_pallas_train: bool = False):
         super().__init__()
         self.use_pallas = use_pallas
+        self.use_slab = use_slab
+        self.use_pallas_train = use_pallas_train
         self.leaky_value = leaky_value
         self.dtype = dtype
         self.single_view_identity = single_view_identity
@@ -85,6 +100,31 @@ class Merger(nn.Module):
         y5 = norms[5](r32, True, external_stats=(m5, v5))
         return F.leaky_relu(y5, self.leaky_value)
 
+    def _layered(self, x: torch.Tensor, train: bool,
+                 band: bool) -> torch.Tensor:
+        """The six layers with each conv through kernels J and K: the slab
+        route (float32 kernel, float32 dW) or the banded one (kernel in
+        the compute dtype, so dW is rounded to it).  [V, 1, 32, 32, 32]."""
+
+        def layer(i: int, y: torch.Tensor) -> torch.Tensor:
+            conv = getattr(self, f"conv{i + 1}")
+            k = conv.kernel.permute(2, 3, 4, 1, 0)  # DHWIO
+            if band:
+                z = band_conv3d(y.to(self.dtype), k.to(self.dtype))
+            else:
+                z = slab_conv3d(y.to(self.dtype), k)
+            z = getattr(self, f"bn{i + 1}")(
+                (z + conv.bias.to(self.dtype)).permute(0, 4, 1, 2, 3), train)
+            return F.leaky_relu(z, self.leaky_value).permute(0, 2, 3, 4, 1)
+
+        y = x.permute(0, 2, 3, 4, 1)  # channels-last view
+        acts = []
+        for i in range(4):
+            y = layer(i, y)
+            acts.append(y)
+        y = layer(4, torch.cat(acts, -1))
+        return layer(5, y).permute(0, 4, 1, 2, 3)
+
     def _fused(self, x: torch.Tensor) -> torch.Tensor:
         """Inference stack through kernel I: [V, 32, 32, 32] f32 logits."""
         convs = [getattr(self, f"conv{i + 1}") for i in range(6)]
@@ -105,10 +145,17 @@ class Merger(nn.Module):
         identity = self.single_view_identity and n_views == 1
         stack = (self.use_stack and train and (b * n_views) % 16 == 0
                  and b * n_views <= self.stack_max_volumes)
-        # the JAX precedence: fused (inference) > stack > plain convs
-        run = (self._fused if self.use_pallas and not train
-               else self._stack if stack
-               else (lambda y: self._plain(y, train)))
+        # the JAX precedence: fused (inference) > stack (training) > slab
+        # (both) > band (training) > plain convs
+        if self.use_pallas and not train:
+            run = self._fused
+        elif stack:
+            run = self._stack
+        elif self.use_slab or (self.use_pallas_train and train):
+            band = not self.use_slab
+            run = lambda y: self._layered(y, train, band)  # noqa: E731
+        else:
+            run = lambda y: self._plain(y, train)  # noqa: E731
         if identity:
             if train:
                 with torch.no_grad():  # for the BatchNorm statistics only

@@ -6,6 +6,11 @@ channels, 32^3 -> 4^3), an FC bottleneck 8192 -> 2048 -> 8192 (ReLU),
 three ConvTranspose3d(k4, s2, p1) levels with additive skips, and
 (input + reconstruction) * 0.5 — still logits.
 
+With ``down1_pallas`` (``REFINER_DOWN1_PALLAS``) the 1-channel first conv
+runs as ``ops/pallas_down1.conv3d_down1``: the stock conv forward and
+kernel L's fused backward, the kernel cast to the compute dtype and the
+bias added outside, as in JAX.
+
 The JAX refiner flattens the 4^3 x 128 bottleneck channels-last
 (D, H, W, C); this one permutes NCDHW to that order before ``fc1`` and
 back after ``fc2``, so the flax dense kernels load unchanged.
@@ -24,13 +29,15 @@ from swinvox_tpu_torch.models.layers import (
     Norm,
     max_pool,
 )
+from swinvox_tpu_torch.ops.pallas_down1 import conv3d_down1
 
 
 class Refiner(nn.Module):
     def __init__(self, leaky_value: float = 0.2, tconv_use_bias: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, down1_pallas: bool = False):
         super().__init__()
         self.leaky_value = leaky_value
+        self.down1_pallas = down1_pallas
         self.dtype = dtype
         for name, ci, co in (("down1", 1, 32), ("down2", 32, 64),
                              ("down3", 64, 128)):
@@ -48,8 +55,14 @@ class Refiner(nn.Module):
                                        use_bias=tconv_use_bias, dtype=dtype)
 
     def _down(self, x: torch.Tensor, name: str, train: bool) -> torch.Tensor:
-        y = getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(x),
-                                        train)
+        conv = getattr(self, f"{name}_conv")
+        if self.down1_pallas and x.shape[1] == 1:
+            y = conv3d_down1(x.permute(0, 2, 3, 4, 1),
+                             conv.kernel.permute(2, 3, 4, 1, 0).to(self.dtype))
+            y = (y + conv.bias.to(y.dtype)).permute(0, 4, 1, 2, 3)
+        else:
+            y = conv(x)
+        y = getattr(self, f"{name}_bn")(y, train)
         y = F.leaky_relu(y, self.leaky_value)
         return max_pool(y, 2)  # k4 p2 grows 32 -> 33; the pool floors to 16
 

@@ -56,6 +56,9 @@ class SwinVoxModel(nn.Module):
         merger_stack_max_volumes: int = 64,
         use_pallas: bool = False,
         use_pallas_merger: bool = False,
+        use_slab_merger: bool = False,
+        use_pallas_merger_train: bool = False,
+        refiner_down1_pallas: bool = False,
     ):
         super().__init__()
         self.use_merger, self.use_refiner = use_merger, use_refiner
@@ -80,9 +83,11 @@ class SwinVoxModel(nn.Module):
             self.merger = Merger(leaky_value, dtype,
                                  merger_single_view_identity,
                                  use_merger_stack, merger_stack_max_volumes,
-                                 use_pallas_merger)
+                                 use_pallas_merger, use_slab_merger,
+                                 use_pallas_merger_train)
         if use_refiner:
-            self.refiner = Refiner(leaky_value, tconv_use_bias, dtype)
+            self.refiner = Refiner(leaky_value, tconv_use_bias, dtype,
+                                   refiner_down1_pallas)
 
     @classmethod
     def from_config(
@@ -90,20 +95,8 @@ class SwinVoxModel(nn.Module):
     ) -> "SwinVoxModel":
         """The model ``cfg.NETWORK`` describes, initialized as the JAX
         package initializes it from ``generator`` (default: seeded with
-        ``cfg.CONST.RNG_SEED``).
-
-        The JAX kernels not ported yet raise rather than run their plain
-        math in their place: ``USE_PALLAS_MERGER_TRAIN``,
-        ``USE_SLAB_MERGER`` and ``REFINER_DOWN1_PALLAS``.
-        """
+        ``cfg.CONST.RNG_SEED``)."""
         net = cfg.NETWORK
-        for flag, what in (
-            ("USE_PALLAS_MERGER_TRAIN", "the banded merger conv kernel"),
-            ("USE_SLAB_MERGER", "the slab merger conv kernel"),
-            ("REFINER_DOWN1_PALLAS", "the refiner's fused conv backward"),
-        ):
-            if getattr(net, flag):
-                raise NotImplementedError(f"{flag}: {what} is not ported")
         model = cls(
             use_swin_multi_stage=net.USE_SWIN_T_MULTI_STAGE,
             swin_stages=tuple(net.SWIN_T_STAGES),
@@ -126,6 +119,9 @@ class SwinVoxModel(nn.Module):
             merger_stack_max_volumes=net.MERGER_STACK_MAX_VOLUMES,
             use_pallas=net.USE_PALLAS_WINDOW_ATTENTION,
             use_pallas_merger=net.USE_PALLAS_MERGER,
+            use_slab_merger=net.USE_SLAB_MERGER,
+            use_pallas_merger_train=net.USE_PALLAS_MERGER_TRAIN,
+            refiner_down1_pallas=net.REFINER_DOWN1_PALLAS,
         )
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.CONST.RNG_SEED)

@@ -125,9 +125,9 @@ def test_bridge_covers_every_leaf(models):
 def test_from_config_flags(models):
     """The flags gate the kernel paths as in JAX: the Swin-block kernel,
     the rewindow chain, the W-MSA kernel (USE_PALLAS_WINDOW_ATTENTION,
-    reached without the block kernel) and the inference merger kernel;
-    the JAX kernels not ported yet raise instead of running plain math
-    in their place."""
+    reached without the block kernel), the inference merger kernel, and
+    the training routes of kernels J, K (the slab and banded merger
+    convs) and L (the refiner's down1 backward)."""
     from swinvox_tpu_torch.models.swinvox import SwinVoxModel
 
     cfg = nano_config()
@@ -147,11 +147,13 @@ def test_from_config_flags(models):
     assert not plain.encoder.swin.stage0_block0.use_pallas
     cfg.NETWORK.USE_PALLAS_MERGER = True
     assert SwinVoxModel.from_config(cfg).merger.use_pallas
-    for flag in ("USE_PALLAS_MERGER_TRAIN", "USE_SLAB_MERGER",
-                 "REFINER_DOWN1_PALLAS"):
+    for flag, owner, attr in (
+            ("USE_PALLAS_MERGER_TRAIN", "merger", "use_pallas_train"),
+            ("USE_SLAB_MERGER", "merger", "use_slab"),
+            ("REFINER_DOWN1_PALLAS", "refiner", "down1_pallas")):
+        assert not getattr(getattr(plain, owner), attr)
         setattr(cfg.NETWORK, flag, True)
-        with pytest.raises(NotImplementedError):
-            SwinVoxModel.from_config(cfg)
+        assert getattr(getattr(SwinVoxModel.from_config(cfg), owner), attr)
         setattr(cfg.NETWORK, flag, False)
 
 
