@@ -41,7 +41,9 @@ raises, so the exit code is nonzero):
      shapes of batch 32, aligned and shifted, with drop-path factors 0, 1
      and 1/0.9: output and dx by max-abs error against the f32 plain
      version, each parameter gradient by relative L2, each within 2 x the
-     bf16 plain version's error + 1e-2; ms per call beside the plain's;
+     bf16 plain version's error + 1e-2; ms per call beside the plain's,
+     and D's achieved TFLOP/s and GB/s (of its own bytes) per stage shape
+     and its device time by kernel group (KERNEL_GROUPS) over one call;
   9. kernels E and F (merger stack forward and backward) against their
      plain version at N = 32 (forward) and N = 48 (forward and backward),
      by the same rule: raw5, means and variances by max-abs; dx, dW, db,
@@ -70,8 +72,10 @@ raises, so the exit code is nonzero):
      as in phase 10; the step's merger-stack call is recorded and held
      against the plain stack on its inputs by phase 9's rule;
  12. training speed at batch 32, 1 view: step wall time over 20 steps, a
-     profiler breakdown of one step by kernel group with the busy share,
-     peak device memory;
+     profiler breakdown of one step by kernel group (KERNEL_GROUPS: D's
+     GEMMs, GEMMs with the LayerNorm backward, LayerNorm and sums, and
+     attention apart; K's weight gradient apart from F's) with the busy
+     share, peak device memory;
  13. kernels G (window-attention core) and H (fused W-MSA) against their
      plain versions at the four stage shapes of one evaluation forward (24
      images: TEST.EVAL_BATCH_SIZE 8 x 3 views), masked and unmasked, and
@@ -112,7 +116,8 @@ raises, so the exit code is nonzero):
      per call of the kernel, the plain version and one library call
      (``F.conv3d``, ``torch.nn.grad.conv3d_weight``,
      ``aten.convolution_backward``, bf16, unused by the port), summed over
-     a step's 12 J, 6 K and 1 L calls;
+     a step's 12 J, 6 K and 1 L calls; K also in f32 (its CUDA-core route)
+     beside ``conv3d_weight`` in f32 with TF32 off and its f32 bound;
  16. the training entry point, ``runner`` in train mode in-process, at
      full width on a synthetic fixture (48 train and 16 val samples, 2
      categories, 3 views), 2 epochs with validation each epoch and
@@ -133,16 +138,23 @@ raises, so the exit code is nonzero):
      BatchNorm statistics within RESUME_STATE_RTOL (per module) of the
      uninterrupted run's (the Adam moments are reported: see
      RESUME_STATE_RTOL), and its epoch-2 checkpoint read back by the
-     port's ``load_checkpoint`` into a TrainState exactly.  Step wall (median after the first), epoch and
-     ``evaluate`` walls are smoke readings.
+     port's ``load_checkpoint`` into a TrainState exactly.  Then the
+     same pair again (``train-slab`` uninterrupted, and resumed at epoch
+     2) with every train step under ``torch.use_deterministic_algorithms
+     (True, warn_only=True)`` and cuDNN's deterministic algorithms
+     (CUBLAS_WORKSPACE_CONFIG=:4096:8 is set before cuBLAS starts): the
+     moments' and weights' distance per module from that uninterrupted
+     run, the ops that have no deterministic implementation, and the
+     median step wall beside the default runs'.  Step wall (median after
+     the first), epoch and ``evaluate`` walls are smoke readings.
 
 Phases 14 and 16 write their fixtures and checkpoints under a fresh
 temporary directory outside the repo (``tempfile.mkdtemp``), removed at
 the end even on failure; the script leaves nothing in the repo but
-``chiprun_out/chip_smoke.json``.  Phase 16 writes seven full checkpoints
-of about 1 GB (two per configuration at SAVE_FREQ 1, one for the resumed
-epoch) and the resume copy, at most two on disk at once: each
-configuration's are deleted before the next.
+``chiprun_out/chip_smoke.json``.  Phase 16 writes ten full checkpoints
+of about 1 GB (two per uninterrupted run at SAVE_FREQ 1, one per resumed
+epoch) and the resume copies, at most two on disk at once: each run's
+are deleted before the next.
 
 Kernel G is reached only through ``window_attention(use_pallas=True)``,
 as its TPU kernel is in the JAX package: no model path launches it, so
@@ -201,6 +213,7 @@ VIEW3_MAX = 0.1
 VIEW3_MEAN = 5e-3
 SERVE_REQUESTS = 640  # 20 full batches per sustained run
 PEAK_BF16 = 989e12    # H100 SXM dense bf16, FLOP/s
+PEAK_F32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM = 3.35e12         # H100 SXM bytes/s
 DP_FACTORS = (0.0, 1.0, 1.0 / 0.9)  # drop-path factors of one image
 # |loss - f32 loss| allowed beyond 2 x the bf16 plain path's: the bf16
@@ -368,12 +381,14 @@ def layer_times(torch, model, x, repeats=5):
 
 KERNEL_GROUPS = (  # (group, substring), first match wins
     ("kernel A (rewindow)", "rewindow_kernel"),
+    ("kernel D GEMMs with LayerNorm", "swin_bwd_gemm_ln"),
     ("kernel D GEMMs", "swin_bwd_gemm"),
     ("kernel D attention", "swin_bwd_attn"),
     ("kernel D LayerNorm, sums", "swin_bwd_"),
     ("kernel B/C/G/H attention", "attention_kernel"),
     ("kernel B/C/H GEMMs", "gemm_kernel<"),
     ("kernel E/F/I convs", "mstack_conv"),
+    ("kernel K weight grads", "mconv_wgrad"),
     ("kernel F weight grads", "mstack_wgrad"),
     ("kernel E/F statistics", "mstack_"),
     ("host-to-device copy", "Memcpy HtoD"),
@@ -569,9 +584,9 @@ def check_swin_block(torch, blk, mask_fn, dev, report):
 
 
 
-def bound(flop, nbytes):
+def bound(flop, nbytes, peak=PEAK_BF16):
     """(ms, "operations" or "bytes"): the least time for the work."""
-    t_ops, t_bytes = flop / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
+    t_ops, t_bytes = flop / peak * 1e3, nbytes / HBM * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -709,6 +724,12 @@ def check_swin_train(torch, blk, mask_fn, dev, report):
                 torch, time_grad(torch, out_p,
                                  [apl[i] for i in SWIN_GRAD_ARGS], dout),
                 time_grad(torch, got, ins_k, dout), iters=5)
+            # D's device time by kernel group over one backward
+            prof = profile_call(torch, lambda: (
+                time_grad(torch, got, ins_k, dout)(),
+                torch.cuda.synchronize()))
+            split = {k: v for k, v in (prof or {"groups_ms": {}})[
+                "groups_ms"].items() if k.startswith("kernel D")}
             tokens = nw * 49
             # the function's own work: x in and out (bf16), the four bf16
             # weights; backward: x and dout in, dx out, the weights in and
@@ -721,9 +742,17 @@ def check_swin_train(torch, blk, mask_fn, dev, report):
                             "fwd_plain_ms": fp, "bwd_ms": bk,
                             "bwd_plain_ms": bp, "errors": errs,
                             "fwd_bound_ms": bound(ffl, fby)[0],
-                            "bwd_bound_ms": bound(bfl, bby)[0]}
+                            "bwd_bound_ms": bound(bfl, bby)[0],
+                            "bwd_tflop_s": bfl / bk / 1e9,
+                            "bwd_gb_s": bby / bk / 1e6,
+                            "bwd_profile_ms": split}
             log(f"  C {fk:.4f} ms (plain {fp:.4f}), D {bk:.4f} ms (plain "
-                f"{bp:.4f}); {count}x per step")
+                f"{bp:.4f}; {bfl / bk / 1e9:.1f} TFLOP/s, {bby / bk / 1e6:.0f}"
+                f" GB/s of its own bytes, bound {bound(bfl, bby)[0]:.4f} ms);"
+                f" {count}x per step; D's device ms by group (profiler, one "
+                "call): " + (", ".join(f"{k} {v:.4f}"
+                                       for k, v in split.items())
+                             or "not measured"))
             # kernel C's saved intermediates (h1, qkv, ctx, h2, the GELU
             # output in bf16; x2 and the pre-GELU values in f32; two LN
             # statistics pairs): 40 bytes per token-channel + 16 per token
@@ -1523,6 +1552,25 @@ def check_train_kernels(torch, bc, d1, dev, report):
                 if not torch.equal(bc.merger_conv_wgrad(xd, dyd), got_w):
                     failed.append(f"K {tag} {ci}->{co}: two launches on "
                                   "the same inputs differ")
+                xn, dyn = xd.permute(0, 4, 1, 2, 3), dyd.permute(0, 4, 1, 2, 3)
+
+                def plain_k():
+                    with exact_f32(torch):
+                        bc.merger_conv_wgrad_reference(xd, dyd)
+
+                def lib_k():  # TF32 off: the f32 yardstick computes in f32
+                    with exact_f32(torch):
+                        torch.nn.grad.conv3d_weight(xn, (co, ci, 3, 3, 3),
+                                                    dyn, padding=1)
+
+                pk, kk = time_pair(torch, plain_k,
+                                   lambda: bc.merger_conv_wgrad(xd, dyd))
+                lk, _ = time_pair(torch, lib_k, lib_k)
+                key = "K" if tag == "bf16" else "K f32"
+                times[(key, ci, co)] = (kk, pk, lk)
+                if tag != "bf16":
+                    log(f"  K f32 {ci}->{co} at {v} volumes: kernel "
+                        f"{kk:.4f} ms, plain {pk:.4f}, conv3d_weight {lk:.4f}")
             if dtype != torch.bfloat16:
                 continue
             xn = xd.permute(0, 4, 1, 2, 3)
@@ -1538,20 +1586,7 @@ def check_train_kernels(torch, bc, d1, dev, report):
                               lambda: F.conv3d(xn, kn, padding=1))
             times[("J", ci, co)] = (kj, pj, lj)
             if (ci, co) in bc.FORWARD_SHAPES:
-                dyn = dyd.permute(0, 4, 1, 2, 3)
-
-                def plain_k():
-                    with exact_f32(torch):
-                        bc.merger_conv_wgrad_reference(xd, dyd)
-
-                def lib_k():
-                    torch.nn.grad.conv3d_weight(xn, (co, ci, 3, 3, 3), dyn,
-                                                padding=1)
-
-                pk, kk = time_pair(torch, plain_k,
-                                   lambda: bc.merger_conv_wgrad(xd, dyd))
-                lk, _ = time_pair(torch, lib_k, lib_k)
-                times[("K", ci, co)] = (kk, pk, lk)
+                kk, pk, lk = times[("K", ci, co)]
             log(f"  J {ci}->{co} at {v} volumes: kernel {kj:.4f} ms, plain "
                 f"{pj:.4f}, F.conv3d {lj:.4f}" + (
                     f"; K {kk:.4f} ms, plain {pk:.4f}, conv3d_weight "
@@ -1597,15 +1632,23 @@ def check_train_kernels(torch, bc, d1, dev, report):
             for key, e in errs.items()) + " (max-abs vs f32 plain / "
             "relative L2 vs plain)")
     # per main-path unit, a 3-view batch-8 step: J's 12 calls, K's 6, L's 1
+    # (K f32: the f32 route, bound by f32 bytes and the f32 CUDA-core rate,
+    # reported beside the table's bf16 row)
     rows = {}
-    for kernel, calls in (("J", J_STEP), ("K", K_STEP)):
+    for kernel, calls in (("J", J_STEP), ("K", K_STEP), ("K f32", K_STEP)):
         ms_ = [times[(kernel,) + c] for c in calls]
-        flop = sum(conv_work(*c, v, kernel == "K")[0] for c in calls)
-        nbytes = sum(conv_work(*c, v, kernel == "K")[1] for c in calls)
+        work = [conv_work(*c, v, kernel != "J") for c in calls]
+        flop = sum(w[0] for w in work)
+        nbytes = sum(w[1] for w in work)
+        if kernel == "K f32":
+            nbytes = sum(2.0 * v * 32**3 * (c[0] + c[1]) * 2
+                         + 27 * c[0] * c[1] * 4 for c in calls)
         rows[kernel] = {"ms": sum(t[0] for t in ms_),
                         "plain_ms": sum(t[1] for t in ms_),
                         "library_ms": sum(t[2] for t in ms_),
-                        "bound": bound(flop, nbytes), "calls": len(calls)}
+                        "bound": bound(flop, nbytes, PEAK_F32
+                                       if kernel == "K f32" else PEAK_BF16),
+                        "calls": len(calls)}
     kl, pl, ll = times[("L",)]
     rows["L"] = {"ms": kl, "plain_ms": pl, "library_ms": ll,
                  "bound": bound(*down1_work(n)), "calls": 1}
@@ -1720,6 +1763,63 @@ def want_train_launches(cfg, batch, flags, steps, val_forwards):
     }
 
 
+@contextlib.contextmanager
+def deterministic_algorithms(torch, seen):
+    """Holds ``torch.use_deterministic_algorithms`` and cuDNN's
+    deterministic algorithms (benchmark off) over a block, then restores
+    them.  ``warn_only``: an op with no deterministic implementation still
+    runs, and its name lands in ``seen`` (a set)."""
+    import warnings
+
+    cudnn = torch.backends.cudnn
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        for w in caught:
+            msg = str(w.message)
+            if "deterministic" in msg:
+                seen.add(msg.split(" does not have")[0].strip()[:200])
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        cudnn.deterministic, cudnn.benchmark = prev[2], prev[3]
+
+
+def state_group_l2(torch, got, want):
+    """Per (module, weights or moment) group of two ``_snapshot``s: the
+    relative L2 of the concatenated tensors (a conv bias before a
+    train-mode BatchNorm has a gradient of pure rounding noise, so its own
+    moments differ from run to run by their whole size, while the group's
+    do not)."""
+    groups = {}
+    for k in want:
+        parts = k.split(".")
+        g = (parts[1] + " weights" if parts[0] == "model"
+             else f"{parts[0]} {parts[1]}")
+        groups.setdefault(g, []).append(k)
+    return {g: rel_l2(torch.cat([got[k].float().reshape(-1) for k in ks]),
+                      torch.cat([want[k].float().reshape(-1) for k in ks]))
+            for g, ks in groups.items()}
+
+
+def resume_at_epoch2(work, epoch1_file, name):
+    """A copy of an epoch-1 checkpoint whose meta says epoch_idx 1, so a
+    run resumed from it starts again at epoch 2 (the JAX package's resume
+    starts again at the epoch a checkpoint was saved after)."""
+    from swinvox_tpu_torch.utils import flax_msgpack
+
+    blob = flax_msgpack.unpackb(epoch1_file.read_bytes())
+    blob["meta"]["epoch_idx"] = 1
+    out = work / f"{name}-resume-at-epoch2.ckpt"
+    out.write_bytes(flax_msgpack.packb(blob))
+    return out
+
+
 def _snapshot(torch, state):
     """Copies of a TrainState's tensors (weights, statistics, moments)."""
     out = {f"model.{k}": v.detach().clone()
@@ -1747,7 +1847,6 @@ def train_phase(torch, dev, card, counters, report):
     from swinvox_tpu_torch.ops import pallas_down1 as d1
     from swinvox_tpu_torch.train import checkpoint as ckpt_mod
     from swinvox_tpu_torch.train import trainer
-    from swinvox_tpu_torch.utils import flax_msgpack
 
     work = Path(tempfile.mkdtemp(prefix="swinvox_chip_smoke_train_"))
     real = {k: getattr(trainer, k) for k in
@@ -1769,8 +1868,10 @@ def train_phase(torch, dev, card, counters, report):
 
             def timed(*sa, **sk):
                 t = time.perf_counter()
-                out = step(*sa, **sk)
-                torch.cuda.synchronize()
+                with (deterministic_algorithms(torch, rec["nondet"])
+                      if rec.get("det") else contextlib.nullcontext()):
+                    out = step(*sa, **sk)
+                    torch.cuda.synchronize()
                 rec["steps"].append((t, time.perf_counter()))
                 return out
             return timed
@@ -1888,11 +1989,7 @@ def train_phase(torch, dev, card, counters, report):
         rec.pop("state")
         slab_saved[1].unlink()
         shutil.rmtree(work / "out" / "train-slab")
-        blob = flax_msgpack.unpackb(slab_saved[0].read_bytes())
-        blob["meta"]["epoch_idx"] = 1
-        resume_file = work / "resume-at-epoch2.ckpt"
-        resume_file.write_bytes(flax_msgpack.packb(blob))
-        del blob
+        resume_file = resume_at_epoch2(work, slab_saved[0], "train-slab")
         slab_saved[0].unlink()
         res = runs["train-slab resumed"] = run(
             "train-slab-resumed", batch, flags,
@@ -1919,21 +2016,7 @@ def train_phase(torch, dev, card, counters, report):
         if readback or meta["epoch_idx"] != 1 or state.step != 2 * steps:
             failed.append(f"resume: epoch-2 checkpoint read back differs in "
                           f"{readback[:4]} (meta {meta}, step {state.step})")
-        # per (module, weights or moment) group: the relative L2 of the
-        # concatenated tensors (a conv bias before a train-mode BatchNorm
-        # has a gradient of pure rounding noise, so its own moments differ
-        # from run to run by their whole size, while the group's do not)
-        groups = {}
-        for k in final:
-            parts = k.split(".")
-            g = (parts[1] + " weights" if parts[0] == "model"
-                 else f"{parts[0]} {parts[1]}")
-            groups.setdefault(g, []).append(k)
-        group_l2 = {g: rel_l2(torch.cat([resumed[k].float().reshape(-1)
-                                         for k in ks]),
-                              torch.cat([final[k].float().reshape(-1)
-                                         for k in ks]))
-                    for g, ks in groups.items()}
+        group_l2 = state_group_l2(torch, resumed, final)
         held = {g: v for g, v in group_l2.items() if g.endswith("weights")}
         worst_g = max(held, key=held.get)
         worst_name = max(final, key=lambda k: rel_l2(resumed[k], final[k]))
@@ -1962,6 +2045,60 @@ def train_phase(torch, dev, card, counters, report):
             failed.append(f"resume: state {worst_g} {held[worst_g]} > "
                           f"{RESUME_STATE_RTOL}")
         del state, resumed, back, final
+        rec.clear()
+
+        # the same resume with the train step deterministic: train-slab
+        # uninterrupted and resumed at epoch 2, each step under
+        # deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG is set in main
+        # before cuBLAS starts); the moments' distance and the step time
+        # beside the default runs'
+        rec.update(det=True, nondet=set())
+        det = runs["train-slab deterministic"] = run(
+            "train-slab-det", batch, flags, keep_calls=False)
+        det_final = _snapshot(torch, rec.pop("state")[0])
+        det_saved = dict(rec["saved"])
+        det_saved[1].unlink()
+        shutil.rmtree(work / "out" / "train-slab-det")
+        det_file = resume_at_epoch2(work, det_saved[0], "train-slab-det")
+        det_saved[0].unlink()
+        detr = runs["train-slab deterministic resumed"] = run(
+            "train-slab-det-resumed", batch, flags,
+            extra=("--weights", str(det_file)), keep_calls=False)
+        det_resumed = _snapshot(torch, rec.pop("state")[0])
+        det_l2 = state_group_l2(torch, det_resumed, det_final)
+        det_base = [x for x in det["losses"] if x[0] >= steps]
+        det_loss = max(abs(a[2] - b[2]) / abs(b[2])
+                       for a, b in zip(detr["losses"], det_base))
+        moments = {g: v for g, v in det_l2.items()
+                   if not g.endswith("weights")}
+        det_ms = statistics.median([det["step_ms_median_after_first"],
+                                    detr["step_ms_median_after_first"]])
+        base_ms = statistics.median(
+            [runs["train-slab"]["step_ms_median_after_first"],
+             runs["train-slab resumed"]["step_ms_median_after_first"]])
+        detr["vs_uninterrupted"] = {
+            "batch_loss_max_rel": det_loss, "state_group_rel_l2": det_l2,
+            "moments_max_rel_l2": max(moments.values()),
+            "nondeterministic_ops": sorted(rec["nondet"]),
+            "step_ms_median": det_ms, "default_step_ms_median": base_ms,
+            "step_cost": det_ms / base_ms - 1}
+        for name, r in (("train-slab-det", det),
+                        ("train-slab-det-resumed", detr)):
+            if r["launches"] != want_train_launches(
+                    cfg, batch, flags,
+                    steps * (TRAIN_EPOCHS if r is det else 1),
+                    (VAL_SAMPLES // cfg.TEST.EVAL_BATCH_SIZE)
+                    * (TRAIN_EPOCHS if r is det else 1)):
+                failed.append(f"{name}: launches {r['launches']}")
+        log(f"deterministic resume (use_deterministic_algorithms, warn_only;"
+            f" cudnn.deterministic): batch losses within {det_loss:.3g}; "
+            "epoch-2 state relative L2 per group " + ", ".join(
+                f"{g} {v:.3g}" for g, v in det_l2.items())
+            + f"; step wall median {det_ms:.3f} ms against the default "
+            f"runs' {base_ms:.3f} ({100 * (det_ms / base_ms - 1):+.1f}%); "
+            f"ops with no deterministic implementation: "
+            f"{sorted(rec['nondet']) or 'none'}; on {card}")
+        del det_final, det_resumed
         rec.clear()
     finally:
         for k, fn in real.items():
@@ -2011,6 +2148,9 @@ def eval_counters(rw, blk, fm, mi, wa):
 
 
 def main(argv) -> int:
+    # cuBLAS reads this when it starts: phase 16's deterministic train
+    # step needs it (a workspace per stream that repeats its reductions)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if argv not in ([], ["--eval-only"]):

@@ -1,21 +1,27 @@
 """Serving, training and evaluation configuration of the port.
 
-The fields of ``swinvox_tpu.config.Config`` that the serving path, the
-training entry point (``train_net``, the train and validation loaders and
-transforms, the runner) and the evaluation entry point (``test_net``)
-read, under the same names, in the same sections, with the same defaults
-(``tests/test_torch_serve.py`` holds them equal), and the JAX
-``Config``'s ``set``/``update``/``validate``.  Anything with these
-attributes works where a ``Config`` is taken, the JAX package's own
-``Config`` included, so one config can drive both packages.
+Every field of ``swinvox_tpu.config.Config``, under the same names, in the
+same sections, with the same defaults (``tests/test_torch_serve.py``
+holds them equal), and the JAX ``Config``'s ``set``/``update``/
+``validate``/``from_dict``/``from_json``.  So the ``config.json`` that
+the JAX ``train_net`` writes beside every run loads here
+(``runner --config``), and anything with these attributes works where a
+``Config`` is taken, the JAX package's own ``Config`` included.
 
-The Pascal3D and Pix3D paths, LR-finder and mesh fields and
-``DIR.PROFILE_DIR`` stay in the JAX package until the modules that read
-them are ported, as do the flags that pick between XLA formulations of
-one function (``USE_BAND2D_MERGER``, ``REFINER_UNROLLED_CONV``,
-``TRAIN.FUSED_OPTIMIZER``: the port has one formulation each).
-``TRAIN.DEVICE_AUGMENT`` is here so a config can name it, but the device
-augmentation is not ported: ``train_net`` refuses it.
+Fields the port reads but whose value changes nothing: the flags that
+only pick between XLA formulations of one function
+(``NETWORK.USE_BAND2D_MERGER``, ``NETWORK.REFINER_UNROLLED_CONV``,
+``TRAIN.FUSED_OPTIMIZER``, ``NETWORK.PALLAS_INTERPRET``) are accepted
+whatever their value, because the port computes the same function either
+way; ``CONST.DEVICE`` is read by neither package.  Fields that name a
+feature the port lacks are refused, when not at their default, where
+that feature would be used: ``NETWORK.PRETRAINED_BACKBONE`` by
+``create_train_state``, ``DIR.PROFILE_DIR`` and ``TRAIN.DEVICE_AUGMENT``
+by ``train_net``, ``CONST.DEVICE_SELECT`` and ``PARALLEL.*`` beyond one
+device by ``train_net`` and ``test_net``; ``LR_FINDER.*`` is read only
+under ``--lr_find``, which the runner refuses.  The Pascal3D and Pix3D
+paths wait for their dataset indexes (``DATASET.TEST_DATASET`` names
+only ShapeNet in the port).
 """
 
 from __future__ import annotations
@@ -34,12 +40,33 @@ class ShapeNetPaths:
 
 
 @dataclass
+class Pascal3DPaths:
+    TAXONOMY_FILE_PATH: str = "./datasets/Pascal3D.json"
+    ANNOTATION_PATH: str = "./data/PASCAL3D/Annotations/%s_imagenet/%s.mat"
+    RENDERING_PATH: str = "./data/PASCAL3D/Images/%s_imagenet/%s.JPEG"
+    VOXEL_PATH: str = "./data/PASCAL3D/CAD/%s/%02d.binvox"
+
+
+@dataclass
+class Pix3DPaths:
+    TAXONOMY_FILE_PATH: str = "./datasets/Pix3D.json"
+    ANNOTATION_PATH: str = "./data/pix3d.json"
+    RENDERING_PATH: str = "./data/pix3d/img/%s/%s.%s"
+    VOXEL_PATH: str = "./data/pix3d/model/%s/%s/%s.binvox"
+
+
+@dataclass
 class DatasetsConfig:
     SHAPENET: ShapeNetPaths = field(default_factory=ShapeNetPaths)
+    PASCAL3D: Pascal3DPaths = field(default_factory=Pascal3DPaths)
+    PIX3D: Pix3DPaths = field(default_factory=Pix3DPaths)
 
 
 @dataclass
 class ConstConfig:
+    DEVICE: str = "0"
+    # the JAX runner's --gpu device list; the port runs on one device
+    DEVICE_SELECT: str = ""
     RNG_SEED: int = 0
     IMG_W: int = 224
     IMG_H: int = 224
@@ -56,6 +83,8 @@ class DirConfig:
     OUT_PATH: str = "./output"
     # a folder of background images for the train transform (optional)
     RANDOM_BG_PATH: str = ""
+    # the JAX trainer's profiler traces: not ported, train_net refuses it
+    PROFILE_DIR: str = ""
 
 
 @dataclass
@@ -104,6 +133,15 @@ class NetworkConfig:
     USE_PALLAS_SWIN_BLOCK_TRAIN: bool = True
     # kernel A (csrc/rewindow.cu) between window-major blocks
     USE_REWINDOW_CHAIN: bool = True
+    # the JAX package's XLA reformulations of the merger convs and the
+    # refiner's first conv, and its Pallas interpreter switch: accepted
+    # whatever their value (the port computes the same function)
+    USE_BAND2D_MERGER: bool = False
+    REFINER_UNROLLED_CONV: bool = False
+    PALLAS_INTERPRET: bool = False
+    # pretrained backbone weights: not ported, create_train_state
+    # refuses a path
+    PRETRAINED_BACKBONE: str = ""
     SWIN_DEPTHS: Tuple[int, ...] = (2, 2, 6, 2)
     RESNET_STAGE_DEPTHS: Tuple[int, int, int] = (3, 4, 6)
     # "reference" (the original's init, x0.1 convs) or "standard"
@@ -147,6 +185,8 @@ class TrainConfig:
     # the JAX package's on-device augmentation: not ported, train_net
     # refuses it
     DEVICE_AUGMENT: bool = False
+    # optax's fused Adam in JAX: the same update, accepted either way
+    FUSED_OPTIMIZER: bool = False
 
 
 @dataclass
@@ -161,6 +201,24 @@ class TestConfig:
 
 
 @dataclass
+class LRFinderConfig:
+    START_LR: float = 1e-7
+    END_LR: float = 1e-2
+    NUM_BATCHES_TO_TEST: int = 1000
+    AVG_BETA: float = 0.98
+
+
+@dataclass
+class ParallelConfig:
+    # the JAX mesh: the port runs on one device, so train_net and test_net
+    # refuse more than one
+    DATA_PARALLEL: int = -1
+    MODEL_PARALLEL: int = 1
+    MESH_AXIS_NAMES: Tuple[str, str] = ("data", "model")
+    DISTRIBUTED: bool = False
+
+
+@dataclass
 class Config:
     DATASETS: DatasetsConfig = field(default_factory=DatasetsConfig)
     DATASET: DatasetConfig = field(default_factory=DatasetConfig)
@@ -169,12 +227,24 @@ class Config:
     NETWORK: NetworkConfig = field(default_factory=NetworkConfig)
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
     TEST: TestConfig = field(default_factory=TestConfig)
+    LR_FINDER: LRFinderConfig = field(default_factory=LRFinderConfig)
+    PARALLEL: ParallelConfig = field(default_factory=ParallelConfig)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
     def to_json(self, **kwargs: Any) -> str:
         return json.dumps(self.to_dict(), indent=2, **kwargs)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        """The defaults with ``d``'s nested overrides applied."""
+        return cls().update(d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        """``from_dict`` of a JSON string, e.g. a run's ``config.json``."""
+        return cls.from_dict(json.loads(s))
 
     def update(self, overrides: dict) -> "Config":
         """Recursively applies a nested dict of overrides in place."""
@@ -216,6 +286,20 @@ class Config:
                 f"by num_heads ({self.NETWORK.CROSS_ATT_NUM_HEADS})")
         if self.CONST.N_VIEWS_RENDERING < 1:
             raise ValueError("N_VIEWS_RENDERING must be >= 1")
+
+
+def require_one_device(cfg) -> None:
+    """Refuses ``CONST.DEVICE_SELECT`` and ``PARALLEL.*`` asking for more
+    than the one device the port runs on (the JAX mesh is not ported)."""
+    par = cfg.PARALLEL
+    if (cfg.CONST.DEVICE_SELECT or par.DATA_PARALLEL not in (-1, 1)
+            or par.MODEL_PARALLEL != 1 or par.DISTRIBUTED):
+        raise NotImplementedError(
+            "CONST.DEVICE_SELECT / PARALLEL: the port runs on one device; "
+            f"got DEVICE_SELECT={cfg.CONST.DEVICE_SELECT!r}, "
+            f"DATA_PARALLEL={par.DATA_PARALLEL}, "
+            f"MODEL_PARALLEL={par.MODEL_PARALLEL}, "
+            f"DISTRIBUTED={par.DISTRIBUTED}")
 
 
 def _apply_overrides(obj: Any, overrides: dict) -> None:

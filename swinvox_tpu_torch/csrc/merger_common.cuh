@@ -1,8 +1,10 @@
 // Device code shared by the merger's conv kernels: the direct 3x3x3 conv
 // over 32^3 channels-last volumes (kernels E, F and I in merger_stack.cu,
-// kernel J in merger_conv.cu) and its weight-gradient body (kernels F and
-// K).  Included by merger_stack.cu and merger_conv.cu; everything is in an
-// anonymous namespace, so each includes its own copy.
+// kernel J in merger_conv.cu) and its CUDA-core weight-gradient body
+// (kernel F, and kernel K's f32 route; K's bf16 route runs on the tensor
+// cores, mconv_wgrad_mma_kernel in merger_conv.cu).  Included by
+// merger_stack.cu and merger_conv.cu; everything is in an anonymous
+// namespace, so each includes its own copy.
 //
 // The conv: one block per (volume, d plane, half plane of 16 rows), 256
 // threads, two output voxels per thread.  The block loads the 3 x 18 x 34
@@ -17,7 +19,10 @@
 // thread (tap, ci) sums a[v + tap][ci] * dr[v][co] over the block's
 // voxels into a per-block partial; mstack_reduce_kernel then sums the
 // partials in a fixed order (no atomics: the same inputs give the same
-// bits on every run).
+// bits on every run).  What bounds it on an H100: f32 FMAs with one
+// shared load of dr each (shared-load issue, not the card), and one
+// thread per output summing every partial serially in the reduce.  Kernel
+// F keeps it for now; moving F onto K's tensor-core body is queued.
 #pragma once
 
 #include <cuda_bf16.h>

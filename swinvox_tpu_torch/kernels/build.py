@@ -168,8 +168,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # kernel J: (x, w, y, n, cin, cout, is_bf16, stream)
     lib.swinvox_merger_conv.argtypes = [p, p, p, i64, i, i, i, p]
     lib.swinvox_merger_conv.restype = i
-    # kernel K: (x, dy, dw, work, work_bytes, n, cin, cout, is_bf16, stream)
-    lib.swinvox_merger_conv_wgrad_workspace.argtypes = [i64, i, i]
+    # kernel K: (x, dy, dw, work, work_bytes, n, cin, cout, is_bf16, stream);
+    # its workspace (n, cin, cout, is_bf16)
+    lib.swinvox_merger_conv_wgrad_workspace.argtypes = [i64, i, i, i]
     lib.swinvox_merger_conv_wgrad_workspace.restype = i64
     lib.swinvox_merger_conv_wgrad.argtypes = [p] * 4 + [i64, i64, i, i, i, p]
     lib.swinvox_merger_conv_wgrad.restype = i

@@ -12,7 +12,8 @@ merger's (ci, co) in {(9, 9), (36, 9), (9, 1)}:
   * input gradient: J on dy with the adjoint kernel (taps flipped, ci and
     co swapped), rounded once to x.dtype, as the TPU kernel computes it;
   * weight gradient, kernel K: dW[tap, ci, co] = sum_v sum_p x[v, p + tap,
-    ci] * dy[v, p, co] in float32, then cast to the kernel's dtype: the
+    ci] * dy[v, p, co] in float32 (bf16 operands on the tensor cores, f32
+    ones on the CUDA cores), then cast to the kernel's dtype: the
     banded route gets a bf16 kernel from its caller (``models/merger.py``
     casts it, as the JAX merger does), so its dW is rounded to bf16 there;
     the slab route (``ops/pallas_slab_conv.py``) passes the float32
@@ -129,16 +130,17 @@ def merger_conv_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                          f"{tuple(dy.shape)} does not fit x "
                          f"{tuple(x.shape)}")
     lib = build.library()
-    x = x.contiguous()
-    dy = dy.to(x.dtype).contiguous()
-    v = x.shape[0]
+    x, dy = (t.contiguous() for t in (x, dy.to(x.dtype)))
+    # the bf16 route reads whole rows with 16-byte loads
+    x, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dy))
+    v, is_bf16 = x.shape[0], int(x.dtype == torch.bfloat16)
     dw = torch.empty(3, 3, 3, ci, co, dtype=torch.float32, device=x.device)
-    ws = lib.swinvox_merger_conv_wgrad_workspace(v, ci, co)
+    ws = lib.swinvox_merger_conv_wgrad_workspace(v, ci, co, is_bf16)
     work = torch.empty(ws, dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.swinvox_merger_conv_wgrad(
             x.data_ptr(), dy.data_ptr(), dw.data_ptr(), work.data_ptr(), ws,
-            v, ci, co, int(x.dtype == torch.bfloat16),
+            v, ci, co, is_bf16,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "merger conv weight gradient (kernel K)")
     merger_conv_wgrad.launches += 1

@@ -276,6 +276,10 @@ def swin_block_train_forward(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv,
 swin_block_train_forward.launches = 0
 
 
+# the widths kernel D is built for (Swin-T's four stages)
+TRAIN_BWD_WIDTHS = (96, 192, 384, 768)
+
+
 def swin_block_train_backward(dout, x, dp1, dp2, saved, ln1_scale, wqkv,
                               wproj, rel_bias, mask, ln2_scale, w1, w2,
                               num_heads, scale):
@@ -285,7 +289,12 @@ def swin_block_train_backward(dout, x, dp1, dp2, saved, ln1_scale, wqkv,
     operands' dtype (bf16: the model casts its f32 weights to bf16 before
     the block, and the cast's gradient widens them again)."""
     nw, t, c = x.shape
+    if c not in TRAIN_BWD_WIDTHS:
+        raise ValueError(f"swin block train backward: C={c} not in "
+                         f"{TRAIN_BWD_WIDTHS}")
     dout = dout.to(torch.bfloat16).contiguous()
+    if dout.data_ptr() % 16:  # the kernel copies 16-byte chunks
+        dout = dout.clone()
     lib = build.library()
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32

@@ -48,7 +48,13 @@ def create_train_state(
     generator; default seeded with ``cfg.CONST.RNG_SEED``), on ``device``
     (default ``cuda``), with zeroed optimizer states and step 0, and the
     four optimizers.  Every module exists whether or not its epoch gate is
-    open, so the state keeps one layout through training."""
+    open, so the state keeps one layout through training.  The JAX
+    package's pretrained-backbone graft is not ported: a
+    ``NETWORK.PRETRAINED_BACKBONE`` path is refused."""
+    if cfg.NETWORK.PRETRAINED_BACKBONE:
+        raise NotImplementedError(
+            "NETWORK.PRETRAINED_BACKBONE: the pretrained-backbone graft is "
+            f"not ported (got {cfg.NETWORK.PRETRAINED_BACKBONE!r})")
     device = torch.device("cuda" if device is None else device)
     model = SwinVoxModel.from_config(cfg, generator).to(device)
     optimizers = build_optimizers(cfg, steps_per_epoch)

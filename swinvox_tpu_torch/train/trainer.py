@@ -23,8 +23,10 @@ and drop-path masks come from one ``torch.Generator`` seeded before each
 step from ``(CONST.RNG_SEED + 1, step)``, as the JAX step folds the step
 into its key, so a resumed run draws what an uninterrupted one draws.
 The loaders are closed in a ``finally``.  Not ported: the profiler
-traces (``DIR.PROFILE_DIR``), the mesh, the TensorBoard event files and
-voxel renders, and ``TRAIN.DEVICE_AUGMENT`` (refused).
+traces (``DIR.PROFILE_DIR``, refused), the mesh (``PARALLEL.*`` and
+``CONST.DEVICE_SELECT`` beyond one device, refused here and in
+``test_net``), the TensorBoard event files and voxel renders, and
+``TRAIN.DEVICE_AUGMENT`` (refused).
 
 ``test_net``: load the checkpoint's weights (``--weights`` or
 ``CONST.WEIGHTS``; full or params-only), evaluate the test split of
@@ -43,6 +45,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from swinvox_tpu_torch.config import require_one_device
 from swinvox_tpu_torch.data.pipeline import build_loader
 from swinvox_tpu_torch.data.taxonomy import DATASET_INDEX_MAPPING, DatasetType
 from swinvox_tpu_torch.models.swinvox import SwinVoxModel
@@ -72,9 +75,13 @@ def train_net(cfg, device: Union[str, torch.device] = "cuda") -> float:
     """Trains ``cfg.TRAIN.NUM_EPOCHS`` epochs (from the resumed epoch);
     returns the best validation IoU (max over thresholds)."""
     cfg.validate()
+    require_one_device(cfg)
     if cfg.TRAIN.DEVICE_AUGMENT:
         raise NotImplementedError("TRAIN.DEVICE_AUGMENT: the on-device "
                                   "augmentation is not ported")
+    if cfg.DIR.PROFILE_DIR:
+        raise NotImplementedError("DIR.PROFILE_DIR: the trainer's profiler "
+                                  "traces are not ported")
     train_loader = build_loader(cfg, DatasetType.TRAIN)
     val_loader = build_loader(cfg, DatasetType.VAL)
     try:
@@ -192,6 +199,7 @@ def test_net(cfg, epoch_idx: int = -1, weights: Optional[str] = None,
     """Evaluates the checkpoint on the test split; returns the max over
     thresholds of the mean IoU."""
     cfg.validate()
+    require_one_device(cfg)
     model = SwinVoxModel.from_config(cfg)
     weights = weights or cfg.CONST.WEIGHTS
     if weights:

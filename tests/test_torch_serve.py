@@ -58,7 +58,7 @@ def test_config_matches_the_jax_defaults():
             want = want[name]
         assert value == want, ".".join(path)
         n += 1
-    assert n == 74
+    assert n == 98
 
 
 def test_batching_server_serves_the_port(predictor):
