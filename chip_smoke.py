@@ -13,18 +13,22 @@ raises, so the exit code is nonzero):
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels from ``swinvox_tpu_torch/csrc`` with nvcc (timed);
-  3. kernel A (rewindow) against its plain version at every stage shape of
-     serving batch 32, both signs: exact;
+  3. kernel A (rewindow) against its plain version at every shape the JAX
+     chain relayouts at serving batch 32, both signs: exact.  No model
+     path launches A: the port's chain stays in the aligned layout, and a
+     shifted block's kernels (B, C, D) read and write its windows through
+     the roll's map;
   4. kernel B (fused Swin block) against its plain version at the four
-     stage shapes, aligned and shifted, bf16: its max-abs error against the
-     f32 plain version must be <= 2 x the bf16 plain version's + 1e-2;
+     stage shapes, aligned and shifted (aligned tokens, the attention over
+     the shifted windows through the map), bf16: its max-abs error against
+     the f32 plain version must be <= 2 x the bf16 plain version's + 1e-2;
   5. build the full-width default-config SwinVoxModel (Swin-Tiny,
      ResNet-50, bf16) from a seed, wrap it in the port's Predictor and
      BatchingServer(batch_size=32), serve 32 concurrent 224^2 requests
      from 8 threads; each result is a finite [32,32,32] in [0, 1] equal to
      predictor.predict on the same images (exactly: the Predictor runs
      cuDNN deterministic); the launch counters advance by
-     exactly 12 (B) and 7 (A) per served batch;
+     exactly 12 (B) and 0 (A) per served batch;
   6. one 3-view forward (CVA and merger in full) against the f32 plain
      path (USE_PALLAS_SWIN_BLOCK off, TF32 off) on the same weights:
      probabilities within max 0.1 and mean 5e-3 (bf16 drift through ~60
@@ -56,7 +60,7 @@ raises, so the exit code is nonzero):
      bf16 plain (train kernels off), f32 plain (TF32 off); the kernel
      path's loss within 2 x the bf16 plain path's distance from f32 +
      LOSS_FLOOR, each module's gradient (relative L2) within 2 x +
-     GRAD_FLOOR; launch counts per step C 12, D 12, A 14, E 1, F 0.  Each
+     GRAD_FLOOR; launch counts per step C 12, D 12, A 0, E 1, F 0.  Each
      of the kernel path's 12 Swin-block calls is recorded (inputs, drop-
      path factors, the gradient reaching its output, and what kernel D
      sent back to each input) and held against the bf16 and f32 plain
@@ -91,9 +95,11 @@ raises, so the exit code is nonzero):
      configurations: ``default`` (kernels A and B, merger as plain convs),
      ``eval-merger`` (+ kernel I), ``eval-wmsa`` (kernels H and I, no
      block kernel), and the bf16 and f32 plain configurations (no kernel;
-     TF32 off for f32).  Launch counts per forward: A 7, B 12 (default,
-     eval-merger), I 1 (eval-merger, eval-wmsa), H 12 (eval-wmsa), none
-     in the plain ones.  Each kernel configuration's per-sample
+     f32 is COMPUTE_DTYPE float32 with the default flags, which
+     ``SwinVoxModel.from_config`` resolves to the plain paths; TF32
+     off).  Launch counts per forward: A 0, B 12 (default, eval-merger),
+     I 1 (eval-merger, eval-wmsa), H 12 (eval-wmsa), none in the plain
+     ones.  Each kernel configuration's per-sample
      probability volumes lie within 2 x the bf16 plain configuration's
      max-abs distance from the f32 plain one and EVAL_MEAN_RATIO x its
      mean-abs distance, and every kernel call of each run is held
@@ -126,9 +132,9 @@ raises, so the exit code is nonzero):
      (USE_PALLAS_MERGER_TRAIN, REFINER_DOWN1_PALLAS) at batch 8 (24
      volumes: not the merger stack), ``train-default`` at batch 16 (48
      volumes: kernels E and F).  Launch counts per run from the config
-     (per step A 14, C 12, D 12, and J 12, K 6 on the two kernel routes,
-     L 1 with REFINER_DOWN1_PALLAS, E 1 and F 1 on the stack; per
-     validation forward A 7, B 12, and J 6 on the slab route); batch
+     (per step C 12, D 12, and J 12, K 6 on the two kernel routes, L 1
+     with REFINER_DOWN1_PALLAS, E 1 and F 1 on the stack; per validation
+     forward B 12, and J 6 on the slab route; A 0 everywhere); batch
      losses finite; every J, K and L call of the slab and band runs held
      against the plain version on its own inputs (phase 15's rules).
      Then ``train-slab`` resumes from its epoch-1 checkpoint (its
@@ -141,12 +147,20 @@ raises, so the exit code is nonzero):
      port's ``load_checkpoint`` into a TrainState exactly.  Then the
      same pair again (``train-slab`` uninterrupted, and resumed at epoch
      2) with every train step under ``torch.use_deterministic_algorithms
-     (True, warn_only=True)`` and cuDNN's deterministic algorithms
-     (CUBLAS_WORKSPACE_CONFIG=:4096:8 is set before cuBLAS starts): the
-     moments' and weights' distance per module from that uninterrupted
-     run, the ops that have no deterministic implementation, and the
-     median step wall beside the default runs'.  Step wall (median after
-     the first), epoch and ``evaluate`` walls are smoke readings.
+     (True)`` (no ``warn_only``: an op with no deterministic
+     implementation raises and names itself) and cuDNN's deterministic
+     algorithms (CUBLAS_WORKSPACE_CONFIG=:4096:8 is set before cuBLAS
+     starts): every module's Adam moments within DET_MOMENTS_RTOL of that
+     uninterrupted run's, and the median step wall beside the default
+     runs'.  The bisection beside it: two deterministic forward-backward
+     passes of one full-width state on one batch, every parameter's
+     gradient compared bit for bit; the first module that differs is
+     reported (and then the moments are reported, not held).  Last, the
+     quickstart (``cli/quickstart.py``: runner train mode, one epoch with
+     validation) at COMPUTE_DTYPE float32 with the default flags: the
+     resolved kernel routes (all plain) and the launches (none).  Step
+     wall (median after the first), epoch and ``evaluate`` walls are
+     smoke readings.
 
 Phases 14 and 16 write their fixtures and checkpoints under a fresh
 temporary directory outside the repo (``tempfile.mkdtemp``), removed at
@@ -205,7 +219,8 @@ STAGES = [  # (side, channels, heads, blocks per forward: aligned, shifted)
     (14, 384, 12, 3, 3),
     (7, 768, 24, 2, 0),
 ]
-# rewindow calls per forward: (side, channels, sign, count)
+# the JAX chain's rewindow calls per forward, kernel A's shapes: (side,
+# channels, sign, count)
 REWINDOW_CALLS = [(56, 96, -1, 1), (28, 192, -1, 1), (14, 384, -1, 3),
                   (14, 384, 1, 2)]
 B_FLOOR = 1e-2
@@ -274,15 +289,18 @@ TRAIN_CONFIGS = {  # (batch, NETWORK flags beyond the defaults)
 # its first moment read 0.85 relative L2 apart
 RESUME_LOSS_RTOL = 5e-3
 RESUME_STATE_RTOL = 1e-2
+# the deterministic pair: every module's Adam moments after the resumed
+# epoch 2 against the uninterrupted run's (relative L2)
+DET_MOMENTS_RTOL = 1e-6
 EVAL_CONFIGS = {  # NETWORK flags beyond the defaults
     "default": {},
     "eval-merger": {"USE_PALLAS_MERGER": True},
     "eval-wmsa": {"USE_PALLAS_MERGER": True, "USE_PALLAS_SWIN_BLOCK": False},
     "bf16 plain": {"USE_PALLAS_SWIN_BLOCK": False,
                    "USE_PALLAS_WINDOW_ATTENTION": False},
-    "f32 plain": {"USE_PALLAS_SWIN_BLOCK": False,
-                  "USE_PALLAS_WINDOW_ATTENTION": False,
-                  "COMPUTE_DTYPE": "float32"},
+    # the default flags: SwinVoxModel.from_config resolves float32 to the
+    # plain paths of the bf16-only kernels
+    "f32 plain": {"COMPUTE_DTYPE": "float32"},
 }
 
 
@@ -385,8 +403,12 @@ KERNEL_GROUPS = (  # (group, substring), first match wins
     ("kernel D GEMMs", "swin_bwd_gemm"),
     ("kernel D attention", "swin_bwd_attn"),
     ("kernel D LayerNorm, sums", "swin_bwd_"),
-    ("kernel B/C/G/H attention", "attention_kernel"),
-    ("kernel B/C/H GEMMs", "gemm_kernel<"),
+    ("kernel B/C GEMMs with LayerNorm", "swin_fwd_proj_ln"),
+    ("kernel B/C GEMMs", "swin_fwd_gemm"),
+    ("kernel B/C attention", "swin_fwd_attn"),
+    ("kernel B/C LayerNorm", "swin_fwd_ln"),
+    ("kernel G/H attention", "attention_kernel"),
+    ("kernel H GEMMs", "gemm_kernel"),
     ("kernel E/F/I convs", "mstack_conv"),
     ("kernel K weight grads", "mconv_wgrad"),
     ("kernel F weight grads", "mstack_wgrad"),
@@ -470,26 +492,19 @@ def serve_sustained(server_cls, predictor, reqs, n_requests):
                 for i in range(len(spans) - 1))}
 
 def swin_calls(cfg):
-    """(fused block calls, rewindow calls) of one forward under ``cfg``:
-    12 and 7 for Swin-Tiny at 224^2 (a 7x7 stage runs unshifted)."""
-    blocks = rewindows = 0
-    for stage, depth in enumerate(cfg.NETWORK.SWIN_DEPTHS):
-        small = 56 >> stage <= 7
-        layout = "aligned"
-        for d in range(depth):
-            want = "shifted" if d % 2 and not small else "aligned"
-            rewindows += want != layout
-            layout = want
-            blocks += 1
-    return blocks, rewindows
+    """Fused block calls of one forward under ``cfg``: 12 for Swin-Tiny.
+    No model path launches kernel A: the chain stays in the aligned
+    layout, a shifted block's kernels reading its windows through the
+    roll's map."""
+    return sum(cfg.NETWORK.SWIN_DEPTHS)
 
 
 def train_launches(cfg, batch, views):
     """Launches of kernels A, C, D, E, F in one train step."""
-    blocks, rewindows = swin_calls(cfg)
+    blocks = swin_calls(cfg)
     vols = batch * views
     stack = vols % 16 == 0 and vols <= cfg.NETWORK.MERGER_STACK_MAX_VOLUMES
-    return {"rewindow": 2 * rewindows, "swin_block_train_forward": blocks,
+    return {"rewindow": 0, "swin_block_train_forward": blocks,
             "swin_block_train_backward": blocks,
             "merger_stack_forward": int(stack),
             "merger_stack_backward": int(stack and views > 1)}
@@ -543,15 +558,17 @@ def check_swin_block(torch, blk, mask_fn, dev, report):
                 r(4 * c, c, s=(4 * c)**-0.5), r(c, s=0.1)]
         for shifted, count in ((False, n_aligned), (True, n_shifted)):
             f32 = list(base)
-            if shifted:
+            kw = {"num_heads": heads}
+            if shifted:  # aligned tokens, the attention's shifted windows
                 f32[8] = torch.from_numpy(mask_fn(side, side, 7, 3)).to(dev)
+                kw.update(nwh=side // 7, nww=side // 7, shift=3)
             bf = list(f32)
             for i in (0, 3, 5, 11, 13):  # tokens and the four weights
                 bf[i] = f32[i].bfloat16()
             with exact_f32(torch):
-                ref = blk.swin_block_reference(*f32, num_heads=heads)
-            plain = blk.swin_block_reference(*bf, num_heads=heads)
-            got = blk.fused_swin_block(*bf, num_heads=heads)
+                ref = blk.swin_block_reference(*f32, **kw)
+            plain = blk.swin_block_reference(*bf, **kw)
+            got = blk.fused_swin_block(*bf, **kw)
             torch.cuda.synchronize()
             err_k = (got.float() - ref).abs().max().item()
             err_p = (plain.float() - ref).abs().max().item()
@@ -565,8 +582,8 @@ def check_swin_block(torch, blk, mask_fn, dev, report):
                                      f"{err_k} > 2 x {err_p} + {B_FLOOR}")
             worst = max(worst, err_k)
             p, k = time_pair(
-                torch, lambda: blk.swin_block_reference(*bf, num_heads=heads),
-                lambda: blk.fused_swin_block(*bf, num_heads=heads), iters=5)
+                torch, lambda: blk.swin_block_reference(*bf, **kw),
+                lambda: blk.fused_swin_block(*bf, **kw), iters=5)
             tokens = nw * 49
             flop = tokens * (24 * c * c + 4 * 49 * c)
             shapes[name] = {"ms": k, "plain_ms": p, "calls_per_forward": count,
@@ -611,10 +628,10 @@ SWIN_GRAD_ARGS = [i for i, n in enumerate(SWIN_ARGS)
                   if n not in ("dp1", "dp2", "mask")]
 
 
-def swin_plain(torch, blk, args, heads, dout, f32):
+def swin_plain(torch, blk, args, heads, dout, f32, **grid):
     """(output, gradients of SWIN_GRAD_ARGS) of the plain training block on
-    copies of ``args``: as given (bf16 plain), or all in float32 with TF32
-    off (f32 plain)."""
+    copies of ``args``, with the window map ``grid`` (nwh, nww, shift):
+    as given (bf16 plain), or all in float32 with TF32 off (f32 plain)."""
     leaves = []
     for i, a in enumerate(args):
         if a is not None:
@@ -624,7 +641,7 @@ def swin_plain(torch, blk, args, heads, dout, f32):
                 a.requires_grad_(True)
         leaves.append(a)
     with exact_f32(torch) if f32 else contextlib.nullcontext():
-        out = blk.swin_block_train_reference(*leaves, num_heads=heads)
+        out = blk.swin_block_train_reference(*leaves, num_heads=heads, **grid)
         grads = torch.autograd.grad(out, [leaves[i] for i in SWIN_GRAD_ARGS],
                                     dout.to(out.dtype))
     return out.detach(), [g.detach() for g in grads]
@@ -695,15 +712,17 @@ def check_swin_train(torch, blk, mask_fn, dev, report):
                 continue
             f32[10] = (torch.from_numpy(mask_fn(side, side, 7, 3)).to(dev)
                        if shifted else None)
+            grid = (dict(nwh=side // 7, nww=side // 7, shift=3) if shifted
+                    else {})
             bf = [a.bfloat16() if i in (0, 5, 7, 13, 15) else a
                   for i, a in enumerate(f32)]
             akn = [a if a is None else a.detach().clone().requires_grad_(
                 i in SWIN_GRAD_ARGS) for i, a in enumerate(bf)]
-            got = blk.fused_swin_block_train(*akn, num_heads=heads)
+            got = blk.fused_swin_block_train(*akn, num_heads=heads, **grid)
             ins_k = [akn[i] for i in SWIN_GRAD_ARGS]
             gkn = torch.autograd.grad(got, ins_k, dout, retain_graph=True)
-            plain = swin_plain(torch, blk, bf, heads, dout, False)
-            ref = swin_plain(torch, blk, f32, heads, dout, True)
+            plain = swin_plain(torch, blk, bf, heads, dout, False, **grid)
+            ref = swin_plain(torch, blk, f32, heads, dout, True, **grid)
             torch.cuda.synchronize()
             name = f"{side}x{side}xC{c} {'shifted' if shifted else 'aligned'}"
             errs = hold_swin(name, (got, list(gkn)), plain, ref, worst)
@@ -716,10 +735,13 @@ def check_swin_train(torch, blk, mask_fn, dev, report):
                 i in SWIN_GRAD_ARGS) for i, a in enumerate(bf)]
             fp, fk = time_pair(
                 torch,
-                lambda: blk.swin_block_train_reference(*apl, num_heads=heads),
-                lambda: blk.fused_swin_block_train(*akn, num_heads=heads),
+                lambda: blk.swin_block_train_reference(*apl, num_heads=heads,
+                                                       **grid),
+                lambda: blk.fused_swin_block_train(*akn, num_heads=heads,
+                                                   **grid),
                 iters=5)
-            out_p = blk.swin_block_train_reference(*apl, num_heads=heads)
+            out_p = blk.swin_block_train_reference(*apl, num_heads=heads,
+                                                   **grid)
             bp, bk = time_pair(
                 torch, time_grad(torch, out_p,
                                  [apl[i] for i in SWIN_GRAD_ARGS], dout),
@@ -963,14 +985,16 @@ def hold_step_swin(torch, blk, calls, tag):
     vs_plain = []
     for n, rec in enumerate(calls):
         args, heads = rec["args"], rec["kw"]["num_heads"]
+        grid = {k: rec["kw"][k] for k in ("nwh", "nww", "shift")}
         missing = [SWIN_ARGS[i] for i in SWIN_GRAD_ARGS
                    if i not in rec["grads"]]
         if rec["dout"] is None or missing:
             raise AssertionError(f"{tag} block call {n}: no gradient "
                                  f"reached {missing or 'its output'}")
         step = (rec["out"], [rec["grads"][i] for i in SWIN_GRAD_ARGS])
-        plain = swin_plain(torch, blk, args, heads, rec["dout"], False)
-        ref = swin_plain(torch, blk, args, heads, rec["dout"], True)
+        plain = swin_plain(torch, blk, args, heads, rec["dout"], False,
+                           **grid)
+        ref = swin_plain(torch, blk, args, heads, rec["dout"], True, **grid)
         errs = hold_swin(f"{tag} call {n}", step, plain, ref, worst,
                          STEP_VS_PLAIN)
         grads = {w: v for w, v in errs.items() if w != "out"}
@@ -1411,10 +1435,10 @@ def _eval_phase(torch, dev, card, counters, report, work):
         trainer.evaluate = real_eval
         trainer.test_net = real_test
 
-    n_blocks, n_rw = swin_calls(cfg)  # 12 and 7 at Swin-T depths
+    n_blocks = swin_calls(cfg)  # 12 at Swin-T depths
     want = {  # kernel launches per forward
-        "default": {"rewindow": n_rw, "fused_swin_block": n_blocks},
-        "eval-merger": {"rewindow": n_rw, "fused_swin_block": n_blocks,
+        "default": {"fused_swin_block": n_blocks},
+        "eval-merger": {"fused_swin_block": n_blocks,
                         "merger_view_weights": 1},
         "eval-wmsa": {"fused_msa_forward": n_blocks,
                       "merger_view_weights": 1},
@@ -1739,18 +1763,22 @@ def hold_train_calls(torch, bc, d1, kept, tag):
 
 def want_train_launches(cfg, batch, flags, steps, val_forwards):
     """Launches of a ``train_net`` run under ``cfg`` (3 views): per step
-    the train kernels (A 14, C 12, D 12 at Swin-T depths; the merger's E
+    the train kernels (C 12, D 12 at Swin-T depths, no A; the merger's E
     and F when B * 3 volumes take the stack, else J 12 and K 6 on the
     slab and banded routes; L 1 under REFINER_DOWN1_PALLAS), per
-    validation forward A 7 and B 12, and J 6 on the slab route (the slab
-    merger runs at inference too)."""
-    n_blocks, n_rw = swin_calls(cfg)
+    validation forward B 12, and J 6 on the slab route (the slab merger
+    runs at inference too).  At COMPUTE_DTYPE float32 ``from_config``
+    runs the plain paths of the bf16-only kernels (B-F)."""
+    n_blocks = swin_calls(cfg)
     per = train_launches(cfg, batch, TRAIN_VIEWS)
+    if flags.get("COMPUTE_DTYPE") == "float32":
+        per = dict.fromkeys(per, 0)
+        n_blocks = 0
     layered = flags.get("USE_SLAB_MERGER") or flags.get(
         "USE_PALLAS_MERGER_TRAIN")
     stacked = per["merger_stack_forward"] > 0
     return {
-        "rewindow": steps * per["rewindow"] + val_forwards * n_rw,
+        "rewindow": 0,
         "fused_swin_block": val_forwards * n_blocks,
         "swin_block_train_forward": steps * per["swin_block_train_forward"],
         "swin_block_train_backward": steps * per["swin_block_train_backward"],
@@ -1764,30 +1792,59 @@ def want_train_launches(cfg, batch, flags, steps, val_forwards):
 
 
 @contextlib.contextmanager
-def deterministic_algorithms(torch, seen):
-    """Holds ``torch.use_deterministic_algorithms`` and cuDNN's
-    deterministic algorithms (benchmark off) over a block, then restores
-    them.  ``warn_only``: an op with no deterministic implementation still
-    runs, and its name lands in ``seen`` (a set)."""
-    import warnings
-
+def deterministic_algorithms(torch):
+    """Holds ``torch.use_deterministic_algorithms(True)`` (no
+    ``warn_only``: an op with no deterministic implementation raises and
+    names itself) and cuDNN's deterministic algorithms (benchmark off)
+    over a block, then restores them."""
     cudnn = torch.backends.cudnn
     prev = (torch.are_deterministic_algorithms_enabled(),
             torch.is_deterministic_algorithms_warn_only_enabled(),
             cudnn.deterministic, cudnn.benchmark)
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.use_deterministic_algorithms(True)
     cudnn.deterministic, cudnn.benchmark = True, False
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            yield
-        for w in caught:
-            msg = str(w.message)
-            if "deterministic" in msg:
-                seen.add(msg.split(" does not have")[0].strip()[:200])
+        yield
     finally:
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
         cudnn.deterministic, cudnn.benchmark = prev[2], prev[3]
+
+
+def gradient_repeats(torch, dev, flags, batch):
+    """Two deterministic forward-backward passes of the full-width train
+    step's loss from one state on one batch and one dropout seed: the
+    parameters whose gradients differ in any bit, in registration order,
+    and the first module that holds one (None when all repeat)."""
+    from swinvox_tpu_torch.config import default_config
+    from swinvox_tpu_torch.train.state import create_train_state
+    from swinvox_tpu_torch.train.steps import gradients, loss_and_grads
+
+    cfg = default_config()
+    cfg.NETWORK.INIT_SCHEME = "standard"
+    for key, val in flags.items():
+        setattr(cfg.NETWORK, key, val)
+    state, _ = create_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                  4, dev)
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(rng.random(
+        (batch, TRAIN_VIEWS, 224, 224, 3), np.float32)).to(dev)
+    volumes = torch.from_numpy(
+        (rng.random((batch, 32, 32, 32)) > 0.7).astype(np.uint8)).to(dev)
+    model, grads = state.model, []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        with deterministic_algorithms(torch):
+            loss_and_grads(model, images, volumes.float(),
+                           torch.Generator(device=dev).manual_seed(SEED),
+                           True, True)
+            torch.cuda.synchronize()
+        grads.append({k: v.detach().clone()
+                      for k, v in gradients(model).items()})
+    differ = [k for k in grads[0] if not torch.equal(grads[0][k],
+                                                      grads[1][k])]
+    del state, model, grads
+    torch.cuda.empty_cache()
+    return differ, (differ[0].rsplit(".", 1)[0] if differ else None)
 
 
 def state_group_l2(torch, got, want):
@@ -1868,7 +1925,7 @@ def train_phase(torch, dev, card, counters, report):
 
             def timed(*sa, **sk):
                 t = time.perf_counter()
-                with (deterministic_algorithms(torch, rec["nondet"])
+                with (deterministic_algorithms(torch)
                       if rec.get("det") else contextlib.nullcontext()):
                     out = step(*sa, **sk)
                     torch.cuda.synchronize()
@@ -2050,9 +2107,9 @@ def train_phase(torch, dev, card, counters, report):
         # the same resume with the train step deterministic: train-slab
         # uninterrupted and resumed at epoch 2, each step under
         # deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG is set in main
-        # before cuBLAS starts); the moments' distance and the step time
-        # beside the default runs'
-        rec.update(det=True, nondet=set())
+        # before cuBLAS starts); the moments held within DET_MOMENTS_RTOL,
+        # the step time beside the default runs'
+        rec.update(det=True)
         det = runs["train-slab deterministic"] = run(
             "train-slab-det", batch, flags, keep_calls=False)
         det_final = _snapshot(torch, rec.pop("state")[0])
@@ -2071,6 +2128,9 @@ def train_phase(torch, dev, card, counters, report):
                        for a, b in zip(detr["losses"], det_base))
         moments = {g: v for g, v in det_l2.items()
                    if not g.endswith("weights")}
+        # the bisection: do two deterministic passes of one state on one
+        # batch give the same gradients, bit for bit?
+        differ, first = gradient_repeats(torch, dev, flags, batch)
         det_ms = statistics.median([det["step_ms_median_after_first"],
                                     detr["step_ms_median_after_first"]])
         base_ms = statistics.median(
@@ -2079,7 +2139,8 @@ def train_phase(torch, dev, card, counters, report):
         detr["vs_uninterrupted"] = {
             "batch_loss_max_rel": det_loss, "state_group_rel_l2": det_l2,
             "moments_max_rel_l2": max(moments.values()),
-            "nondeterministic_ops": sorted(rec["nondet"]),
+            "gradients_differing": differ,
+            "first_module_differing": first,
             "step_ms_median": det_ms, "default_step_ms_median": base_ms,
             "step_cost": det_ms / base_ms - 1}
         for name, r in (("train-slab-det", det),
@@ -2090,15 +2151,50 @@ def train_phase(torch, dev, card, counters, report):
                     (VAL_SAMPLES // cfg.TEST.EVAL_BATCH_SIZE)
                     * (TRAIN_EPOCHS if r is det else 1)):
                 failed.append(f"{name}: launches {r['launches']}")
-        log(f"deterministic resume (use_deterministic_algorithms, warn_only;"
-            f" cudnn.deterministic): batch losses within {det_loss:.3g}; "
+        log(f"deterministic resume (use_deterministic_algorithms, "
+            f"cudnn.deterministic): batch losses within {det_loss:.3g}; "
             "epoch-2 state relative L2 per group " + ", ".join(
                 f"{g} {v:.3g}" for g, v in det_l2.items())
-            + f"; step wall median {det_ms:.3f} ms against the default "
-            f"runs' {base_ms:.3f} ({100 * (det_ms / base_ms - 1):+.1f}%); "
-            f"ops with no deterministic implementation: "
-            f"{sorted(rec['nondet']) or 'none'}; on {card}")
+            + f" (moments limit {DET_MOMENTS_RTOL}); step wall median "
+            f"{det_ms:.3f} ms against the default runs' {base_ms:.3f} "
+            f"({100 * (det_ms / base_ms - 1):+.1f}%); two passes of one "
+            f"state on one batch: {len(differ)} parameter gradients differ"
+            f"{f' (first module: {first}; {differ[:6]})' if differ else ''}"
+            f"; on {card}")
+        if max(moments.values()) > DET_MOMENTS_RTOL and not differ:
+            failed.append(f"deterministic resume: moments "
+                          f"{max(moments.values())} > {DET_MOMENTS_RTOL} "
+                          "though every gradient repeats")
         del det_final, det_resumed
+        rec.clear()
+
+        # float32 with the default flags, through the quickstart (runner
+        # train mode, one epoch with validation): from_config runs the
+        # bf16-only kernels' plain paths; which kernels launched
+        from swinvox_tpu_torch.cli import quickstart
+        rec.update(name="quickstart-f32", steps=[], saved=[], evals=[])
+        for f in counters.values():
+            f.launches = 0
+        t = time.perf_counter()
+        rc = quickstart.main(["--root", str(work / "quickstart-f32"),
+                              "--epochs", "1", "--train-samples", "16",
+                              "--views", "3", "--batch-size", "8",
+                              "--dtype", "float32", "--platform", str(dev)])
+        torch.cuda.synchronize()
+        launched = {k: f.launches for k, f in counters.items()}
+        routes = rec["state"][0].model.kernel_routes
+        ious = [i for _, i in rec["evals"]]
+        runs["quickstart f32"] = {
+            "rc": rc, "wall_s": time.perf_counter() - t,
+            "steps": len(rec["steps"]), "val_iou": ious,
+            "launches": launched, "kernel_routes": routes}
+        log(f"quickstart float32, default flags: rc {rc}, "
+            f"{len(rec['steps'])} steps, val IoU {ious}; resolved routes "
+            f"{routes}; launches {launched}; on {card}")
+        if rc != 0 or not rec["steps"] or not rec["evals"] or any(
+                routes.values()) or any(launched.values()):
+            failed.append(f"quickstart float32: rc {rc}, routes {routes}, "
+                          f"launches {launched}")
         rec.clear()
     finally:
         for k, fn in real.items():
@@ -2253,12 +2349,11 @@ def main(argv) -> int:
         f"launches {launches}")
     if stats["requests"] != len(reqs) or batches < 1:
         raise AssertionError(f"server stats {stats}")
-    n_blocks, n_rw = swin_calls(cfg)
-    if launches != {"rewindow": n_rw * batches,
-                    "fused_swin_block": n_blocks * batches}:
+    n_blocks = swin_calls(cfg)
+    if launches != {"rewindow": 0, "fused_swin_block": n_blocks * batches}:
         raise AssertionError(f"launch counts {launches} for {batches} "
-                             f"batch(es): want {n_rw} and {n_blocks} per "
-                             "batch")
+                             f"batch(es): want no rewindow and {n_blocks} "
+                             "blocks per batch")
     batch = np.stack(reqs)
     direct = predictor.predict(batch)
     for out in outs:
@@ -2381,7 +2476,7 @@ def main(argv) -> int:
     if not (net.COMPUTE_DTYPE == "bfloat16" and net.USE_PALLAS_SWIN_BLOCK_TRAIN
             and net.USE_REWINDOW_CHAIN and net.USE_MERGER_STACK):
         raise AssertionError("the default config no longer trains bf16 "
-                             "through kernels A, C, D and E")
+                             "through kernels C, D and E")
     state0 = {k: v.detach().clone()
               for k, v in paths["kernels"][0].model.state_dict().items()}
     n_train = sum(p.numel() for p in paths["kernels"][0].model.parameters())
@@ -2687,8 +2782,9 @@ def main(argv) -> int:
     )
     for (name, src, replaces, n, err, rel, k_ms, p_ms, (b_ms, b_by),
          lib_ms) in rows:
-        # kernel G is on no model path (as its TPU kernel): see the top
-        if n < 1 and name != "window_attention":
+        # kernel G is on no model path (as its TPU kernel), and kernel
+        # A's relayout lives in B, C and D's attention loads: see the top
+        if n < 1 and name not in ("window_attention", "rewindow"):
             raise AssertionError(f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,

@@ -11,11 +11,11 @@ The overrides are the quickstart's (docs/convergence/README.md, round 4):
 ``train-samples`` train and ``max(4, train-samples // 6)`` val and test
 samples of one category, ``views`` renders each, LR 1e-4 for the encoder,
 decoder and refiner and 3e-4 for the merger, the reference init, 8 loader
-workers, seed 0.  ``--dtype float32`` also turns off the flags of the
-kernels that take bf16 only (the Swin-block kernels B, C, D and H, the
-merger stack E, F), as chip_smoke.py's f32 plain configuration does: the
-f32 run is the plain path.  Only the best-IoU checkpoint (about 1 GB) is
-written, under ``DIR/output``: give a ``DIR`` outside the repository.
+workers, seed 0.  At ``--dtype float32`` ``SwinVoxModel.from_config``
+runs the plain paths of the kernels that take bf16 only (the Swin-block
+kernels B, C, D and H, the merger stack E, F).  Only the best-IoU
+checkpoint (about 1 GB) is written, under ``DIR/output``: give a ``DIR``
+outside the repository.
 The summary JSON holds the per-epoch train and validation losses, the
 validation IoU, the epoch wall times and the card's name and power
 limit.
@@ -82,10 +82,6 @@ def main(argv=None) -> int:
             "TRAIN.MERGER_LEARNING_RATE": 3e-4,
             "NETWORK.INIT_SCHEME": "reference",
             "NETWORK.COMPUTE_DTYPE": args.dtype}
-    if args.dtype == "float32":  # the port's block and stack kernels
-        for flag in ("USE_PALLAS_SWIN_BLOCK", "USE_PALLAS_SWIN_BLOCK_TRAIN",
-                     "USE_PALLAS_WINDOW_ATTENTION", "USE_MERGER_STACK"):
-            sets[f"NETWORK.{flag}"] = "false"  # take bf16 only
     if args.nano:
         sets["NETWORK.SWIN_DEPTHS"] = "[1,1,1,1]"
         sets["NETWORK.RESNET_STAGE_DEPTHS"] = "[1,1,1]"

@@ -19,13 +19,13 @@
 // mask[w % nW_img]: windows are image-major, as the TPU kernel's mask
 // index map j % blocks_per_image assumes.
 //
-// Three launches, all in swin_common.cuh's device code (kernel B's, with
-// neither its LayerNorm prologue nor its residual epilogues):
+// Three launches, all in swin_common.cuh's device code (kernel B's first
+// design, without its LayerNorm prologue and residual epilogues):
 //
-//   gemm<PLAIN>  x @ Wqkv + bqkv -> bf16 qkv (wmma 64x64 tiles)
+//   gemm         x @ Wqkv + bqkv -> bf16 qkv (wmma 64x64 tiles)
 //   attention    one block per (window, head); the [T, T] scores stay in
 //                shared memory
-//   gemm<PLAIN>  ctx @ Wproj + bproj -> bf16 out
+//   gemm         ctx @ Wproj + bproj -> bf16 out
 //
 // Work at the 12 Swin blocks of a 24-image forward: 8 * tokens * C^2 FLOP
 // in the projections (5.55 GFLOP per block at every stage, tokens * C
@@ -59,16 +59,14 @@ extern "C" int swinvox_fused_msa(const void* x, const void* wqkv,
   auto b = [](const void* p) { return static_cast<const bf16*>(p); };
   int err;
 
-  GemmArgs g{x, nullptr, nullptr, b(wqkv), f(bqkv), nullptr, qkv,
-             M, 3 * C, C, 0.f, nullptr, tokens, nullptr, nullptr, nullptr};
-  if ((err = launch_gemm<PLAIN>(g, s))) return err;
+  GemmArgs g{b(x), b(wqkv), f(bqkv), static_cast<bf16*>(qkv), M, 3 * C, C};
+  if ((err = launch_gemm(g, s))) return err;
 
   attention_kernel<<<dim3((unsigned)n_windows, heads), ATT_THREADS, 0, s>>>(
       b(qkv), f(rel_bias), f(mask), nw_img, static_cast<bf16*>(ctx), tokens,
       C, scale);
   if ((err = (int)cudaGetLastError())) return err;
 
-  g = GemmArgs{ctx, nullptr, nullptr, b(wproj), f(bproj), nullptr, out,
-               M, C, C, 0.f, nullptr, tokens, nullptr, nullptr, nullptr};
-  return launch_gemm<PLAIN>(g, s);
+  g = GemmArgs{b(ctx), b(wproj), f(bproj), static_cast<bf16*>(out), M, C, C};
+  return launch_gemm(g, s);
 }

@@ -19,7 +19,14 @@
 // byte is read once and written once, so the kernel is bound by device
 // memory bandwidth (3.35 TB/s on an H100 SXM): at batch 32 each call moves
 // 2 x 19.3 MB, about 12 us at that roofline.  Rows stay contiguous along
-// C, so a warp reads and writes whole 128-byte lines.
+// C, so a warp reads and writes whole 128-byte lines.  The index math is
+// 32-bit (a call holds at most 2^30 vectors).
+//
+// No model path of the port launches it: the port's Swin chain stays in
+// the aligned layout and the shifted blocks' kernels (B, C, D) read their
+// windows through this same map in their attention's loads
+// (swin_tc.cuh, win_row).  It remains the counterpart of the JAX kernel,
+// held against its plain version on the card.
 //
 // The C entry point returns cudaGetLastError() after the launch.
 
@@ -29,30 +36,29 @@
 namespace {
 
 __global__ void rewindow_kernel(const uint4* __restrict__ x,
-                                uint4* __restrict__ out,
-                                long long n_vec, int vec_per_row, int nwh,
-                                int nww, int window, int offset) {
+                                uint4* __restrict__ out, int n_vec,
+                                int vec_per_row, int nwh, int nww,
+                                int window, int offset) {
   const int tokens = window * window;
   const int per_img = nwh * nww;
   const int height = nwh * window, width = nww * window;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < n_vec; i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / vec_per_row;
-    const int vec = (int)(i - row * vec_per_row);
-    const long long win = row / tokens;
-    const int t = (int)(row - win * tokens);
-    const long long img = win / per_img;
-    const int w_in_img = (int)(win - img * per_img);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
+       i += gridDim.x * blockDim.x) {
+    const int row = i / vec_per_row, vec = i - row * vec_per_row;
+    const int win = row / tokens, t = row - win * tokens;
+    const int img = win / per_img, w_in_img = win - img * per_img;
+    const int wy = w_in_img / nww, ty = t / window;
     // global pixel of this output token in the output layout's image
-    const int y = (w_in_img / nww) * window + t / window;
-    const int xx = (w_in_img % nww) * window + t % window;
-    // the pixel it reads: out(y, x) = in((y + offset) mod H, ...)
-    const int ys = ((y + offset) % height + height) % height;
-    const int xs = ((xx + offset) % width + width) % width;
-    const long long src_row =
-        (img * per_img + (ys / window) * nww + xs / window) * tokens +
-        (ys % window) * window + xs % window;
-    out[i] = x[src_row * vec_per_row + vec];
+    const int y = wy * window + ty;
+    const int xx = (w_in_img - wy * nww) * window + (t - ty * window);
+    // the pixel it reads: out(y, x) = in((y + offset) mod H, ...), with
+    // |offset| < window <= H
+    const int ys = (y + offset + height) % height;
+    const int xs = (xx + offset + width) % width;
+    const int yw = ys / window, xw = xs / window;
+    const int src_row = (img * per_img + yw * nww + xw) * tokens +
+                        (ys - yw * window) * window + (xs - xw * window);
+    out[i] = x[(size_t)src_row * vec_per_row + vec];
   }
 }
 
@@ -73,12 +79,13 @@ extern "C" int swinvox_rewindow(const void* x, void* out, long long n_windows,
     return (int)cudaErrorMisalignedAddress;
   const int vec_per_row = (int)(row_bytes / sizeof(uint4));
   const long long n_vec = rows * vec_per_row;
+  if (n_vec > (1LL << 30)) return (int)cudaErrorInvalidValue;  // 32-bit
   const int threads = 256;
   long long blocks = (n_vec + threads - 1) / threads;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;
   rewindow_kernel<<<(unsigned)blocks, threads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(out), n_vec,
+      static_cast<const uint4*>(x), static_cast<uint4*>(out), (int)n_vec,
       vec_per_row, nwh, nww, window, -sign * shift);
   return (int)cudaGetLastError();
 }

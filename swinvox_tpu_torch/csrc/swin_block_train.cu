@@ -69,7 +69,9 @@
 //                    LayerNorm's two or three sums);
 //   swin_bwd_attn    one block per (window group, head), 4 warps, tokens
 //                    padded to 64 in shared memory, the next window's
-//                    tiles copied in while one computes: mma.sync products,
+//                    tiles copied in while one computes; a shifted block's
+//                    windows read qkv, dctx and write dqkv at the aligned
+//                    rows of the roll's map (swin_tc.cuh): mma.sync products,
 //                    the softmax backward in registers (the first version
 //                    staged S, dP and P through f32 shared memory with
 //                    wmma and reduced each row with a whole warp), dS
@@ -86,22 +88,12 @@
 
 #include <type_traits>
 
-#include "mma_common.cuh"
+#include "swin_tc.cuh"
 
 namespace {
 
-constexpr int HD = 32;
-constexpr int TMAX = 64;
-constexpr int ATT_THREADS = 128;
-
 constexpr int LN_WARPS = 8;
 constexpr int LN_ROWS = 64;  // rows per swin_bwd_ln block
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float dgelu(float m) {
   // d/dm [m * Phi(m)] = Phi(m) + m * phi(m)
@@ -211,59 +203,6 @@ __global__ void __launch_bounds__(RED_THREADS)
 }
 
 // ------------------------------------------------------------- LN backward
-template <int V>
-__device__ __forceinline__ void ld_vec(const float* p, float* v) {
-  if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (V == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void ld_vec(const bf16* p, float* v) {
-  if constexpr (V == 4) {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    const bf16* h = reinterpret_cast<const bf16*>(&t);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = __bfloat162float(h[e]);
-  } else if constexpr (V == 2) {
-    const float2 t = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(p));
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = __bfloat162float(*p);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void st_vec(float* p, const float* v) {
-  if constexpr (V == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else if constexpr (V == 2)
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  else
-    *p = v[0];
-}
-
-template <int V>
-__device__ __forceinline__ void st_vec(bf16* p, const float* v) {
-  if constexpr (V == 4) {
-    alignas(8) bf16 h[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) h[e] = __float2bfloat16(v[e]);
-    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  } else {
-    *p = __float2bfloat16(v[0]);
-  }
-}
-
 // LayerNorm backward plus the residual, one warp per row r:
 // xhat = (x - mean) * rstd, g = dh * scale,
 // d = rstd * (g - mean(g) - xhat * mean(g * xhat)), total = res + d.
@@ -446,7 +385,9 @@ __global__ void __launch_bounds__(256, C == 96 ? 2 : 1)
 // ------------------------------------------------------------ attn_bwd
 // One block per (window group, head), 4 warps; tokens padded to 64 in
 // shared memory (pad rows zero, pad keys probability 0), the next
-// window's tiles copied in with cp.async while this one computes.  Per
+// window's tiles copied in with cp.async while this one computes.  A
+// shifted block's window w reads and writes its tokens at the aligned
+// rows of the map (win_row): qkv, dctx and dqkv stay aligned.  Per
 // window:
 // warp w computes S = q k^T and dP = dctx v^T for query rows [16w, +16)
 // with mma.sync, and the softmax, P, dP . P, dS and dQ = bf16(dS * s) k in
@@ -456,42 +397,27 @@ __global__ void __launch_bounds__(256, C == 96 ? 2 : 1)
 // +16).  drel_bias accumulates in each thread's registers over the
 // group's windows (every (r, c) has one owner) and is written once as the
 // group's partial.
-constexpr int ALD = HD + 8;    // bf16 row of the q, k, v, dctx tiles
 constexpr int PLD = TMAX + 8;  // bf16 row of the P and dS tiles
 constexpr int ATT_TILES = 4 * TMAX * ALD;  // q, k, v, dctx of one window
 constexpr size_t ATT_SMEM = sizeof(bf16) * (2 * ATT_TILES + 2 * TMAX * PLD);
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // out rows [r0, r0 + 16) x HD of a product kept in acc[HD / 8][4], as
 // bf16 to dqkv (row stride 3C) at column `col`; rows >= T are padding.
+// Token r of window w goes to aligned row rows[hf] (r = r0 + lane / 4 +
+// 8 hf).
 __device__ __forceinline__ void attn_store(const float (&acc)[HD / 8][4],
-                                           int r0, int lane, int T,
-                                           bf16* dqkv, size_t row0, int C3,
-                                           int col) {
+                                           const int (&rows)[2], int r0,
+                                           int lane, int T, bf16* dqkv,
+                                           int C3, int col) {
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
+  for (int hf = 0; hf < 2; ++hf) {
+    if (r0 + (lane >> 2) + hf * 8 >= T) continue;
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = r0 + (lane >> 2) + hf * 8;
-      if (r >= T) continue;
+    for (int nt = 0; nt < HD / 8; ++nt)
       *reinterpret_cast<__nv_bfloat162*>(
-          dqkv + (row0 + r) * C3 + col + nt * 8 + (lane & 3) * 2) =
+          dqkv + (size_t)rows[hf] * C3 + col + nt * 8 + (lane & 3) * 2) =
           __floats2bfloat162_rn(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
-    }
+  }
 }
 
 // acc += A^T B over the 64 padded tokens, A^T and B read transposed from
@@ -522,7 +448,7 @@ __global__ void __launch_bounds__(ATT_THREADS)
                              const float* __restrict__ rel_bias,
                              const float* __restrict__ mask, int nw_img,
                              int n_windows, int T, int C, float scale,
-                             bf16* __restrict__ dqkv,
+                             WinMap map, bf16* __restrict__ dqkv,
                              float* __restrict__ dbias_part) {
   extern __shared__ __align__(128) unsigned char att_smem[];
   bf16* tiles = reinterpret_cast<bf16*>(att_smem);  // two windows' tiles
@@ -533,22 +459,30 @@ __global__ void __launch_bounds__(ATT_THREADS)
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const int C3 = 3 * C;
   const float* bias = rel_bias + (size_t)h * T * T;
+  // this thread's two 16-byte chunks of a tile (tokens tid / 4 and
+  // tid / 4 + 32) and its two query rows, through the window map
+  static_assert(TMAX * HD / 8 == 2 * ATT_THREADS, "two chunks a thread");
+  const int cc = (tid % (HD / 8)) * 8;
+  const TokOff fk[2] = {tok_off(map, tid / (HD / 8)),
+                        tok_off(map, tid / (HD / 8) + TMAX / 2)};
+  const TokOff qk[2] = {tok_off(map, r0 + g), tok_off(map, r0 + g + 8)};
   // q, k, v and dctx of window w into tile buffer `buf` with cp.async
   // (pad rows zero-filled)
   auto fetch = [&](int w, int buf) {
     bf16* dst = tiles + buf * ATT_TILES;
-    const size_t row0 = (size_t)w * T;
-    for (int i = tid; i < TMAX * HD / 8; i += ATT_THREADS) {
-      const int tk = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    const WinOrg o = win_org(map, w);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int tk = fk[j].t;
       const bool real = tk < T;
-      const size_t row = row0 + (real ? tk : 0);
-      const bf16* src = qkv + row * C3 + h * HD + c;
-      bf16* d = dst + tk * ALD + c;
+      const size_t row = real ? win_row(map, o, fk[j], T) : 0;
+      const bf16* src = qkv + row * C3 + h * HD + cc;
+      bf16* d = dst + tk * ALD + cc;
       cp_async16(smem_u32(d), src, real);
       cp_async16(smem_u32(d + TMAX * ALD), src + C, real);
       cp_async16(smem_u32(d + 2 * TMAX * ALD), src + 2 * C, real);
       cp_async16(smem_u32(d + 3 * TMAX * ALD),
-                 dctx + row * C + h * HD + c, real);
+                 dctx + row * C + h * HD + cc, real);
     }
   };
   float db[TMAX / 8][4];  // drel_bias of this thread's (row, key) slots
@@ -566,7 +500,11 @@ __global__ void __launch_bounds__(ATT_THREADS)
     cp_async_commit();
     cp_async_wait<1>();  // this window's copies landed (the next may fly)
     __syncthreads();
-    const size_t row0 = (size_t)w * T;
+    int rows[2];  // the aligned rows of this thread's query rows
+    const WinOrg o = win_org(map, w);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      rows[hf] = qk[hf].t < T ? win_row(map, o, qk[hf], T) : 0;
     const bf16* qs = tiles + buf * ATT_TILES;
     const bf16* ks = qs + TMAX * ALD;
     const bf16* vs = ks + TMAX * ALD;
@@ -679,7 +617,7 @@ __global__ void __launch_bounds__(ATT_THREADS)
         mma_bf16(oa[2 * np], dsa[kj], kb[0], kb[1]);
         mma_bf16(oa[2 * np + 1], dsa[kj], kb[2], kb[3]);
       }
-    attn_store(oa, r0, lane, T, dqkv, row0, C3, h * HD);
+    attn_store(oa, rows, r0, lane, T, dqkv, C3, h * HD);
     __syncthreads();  // every row of P and dS is in shared memory
 
     // dV rows (keys) [r0, r0 + 16) = bf16(P)^T dctx
@@ -688,14 +626,14 @@ __global__ void __launch_bounds__(ATT_THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) oa[nt][e] = 0.f;
     attn_tn(ps, PLD, gs, r0, lane, oa);
-    attn_store(oa, r0, lane, T, dqkv, row0, C3, 2 * C + h * HD);
+    attn_store(oa, rows, r0, lane, T, dqkv, C3, 2 * C + h * HD);
     // dK rows (keys) [r0, r0 + 16) = bf16(dS * scale)^T q
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) oa[nt][e] = 0.f;
     attn_tn(ss, PLD, qs, r0, lane, oa);
-    attn_store(oa, r0, lane, T, dqkv, row0, C3, C + h * HD);
+    attn_store(oa, rows, r0, lane, T, dqkv, C3, C + h * HD);
   }
   cp_async_wait<0>();
   float* part = dbias_part + ((size_t)blockIdx.x * gridDim.y + h) * T * T;
@@ -917,7 +855,8 @@ extern "C" long long swinvox_swin_block_train_bwd_workspace(
   return (long long)plan(n_windows, tokens, channels, heads).bytes;
 }
 
-// Shapes as in swinvox_swin_block_train_fwd; gradients out: dx [., C]
+// Shapes and the window map (nwh, nww, window, shift) as in
+// swinvox_swin_block_train_fwd; gradients out: dx [., C]
 // bf16; dln1s, dln1b, dbqkv, dbproj, dln2s, dln2b, db1, db2 and drel_bias
 // [H, T, T] f32; dwqkv [C, 3C], dwproj [C, C], dw1 [C, 4C], dw2 [4C, C]
 // bf16.  `work` holds swinvox_swin_block_train_bwd_workspace() bytes.
@@ -933,8 +872,8 @@ extern "C" int swinvox_swin_block_train_bwd(
     void* dln1b, void* dwqkv, void* dbqkv, void* dwproj, void* dbproj,
     void* drel_bias, void* dln2s, void* dln2b, void* dw1, void* db1,
     void* dw2, void* db2, void* work, long long work_bytes,
-    long long n_windows, int tokens, int channels, int heads, float scale,
-    void* stream) {
+    long long n_windows, int tokens, int channels, int heads, int nwh,
+    int nww, int window, int shift, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p = plan(n_windows, tokens, channels, heads);
   if (p.M == 0) return 0;
@@ -985,8 +924,8 @@ extern "C" int swinvox_swin_block_train_bwd(
   if (attn_attr) return attn_attr;
   swin_bwd_attn_bwd_kernel<<<dim3(p.att_groups, heads), ATT_THREADS,
                              ATT_SMEM, s>>>(
-      B(qkv), dctx, F(rel_bias), F(mask), nw_img, p.nw, T, C, scale, dqkv,
-      part);
+      B(qkv), dctx, F(rel_bias), F(mask), nw_img, p.nw, T, C, scale,
+      WinMap{nwh, nww, window, shift}, dqkv, part);
   if ((err = (int)cudaGetLastError())) return err;
   ReduceJobs rel{};
   rel.add(part, p.att_groups, (long long)heads * T * T,

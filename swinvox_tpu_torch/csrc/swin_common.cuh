@@ -1,9 +1,11 @@
-// Device code shared by the Swin kernels: the wmma GEMM with its
-// LayerNorm prologue and epilogues (kernels B and C, and the plain
-// bias GEMM of kernel H), and the window-attention core (kernels B, C,
-// G and H).  Included by swin_block.cu, fused_msa.cu and
-// window_attention.cu; everything is in an anonymous namespace, so each
-// includes its own copy.
+// Device code shared by kernels G (window_attention.cu) and H
+// (fused_msa.cu): a wmma bf16 GEMM with a bias epilogue, and the
+// window-attention core.  This was kernel B's first design (wmma 64 x 64
+// tiles from plain loads, S staged through f32 shared memory); B and C
+// now run the pipelined core of mma_common.cuh and a register-resident
+// attention (swin_block.cu), which H's products and attention can take
+// next.  Everything is in an anonymous namespace, so each source that
+// includes it gets its own copy.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,29 +26,15 @@ constexpr int HD = 32;      // head_dim of every Swin-T stage
 constexpr int TMAX = 64;    // tokens per window held in shared memory
 constexpr int ATT_THREADS = 128;
 
-// PLAIN: bf16 A @ W + bias -> bf16, no prologue (kernel H's projections)
-enum Mode { QKV = 0, PROJ = 1, FC1 = 2, FC2 = 3, PLAIN = 4 };
-
+// out = bf16(a @ w + bias): a [M, K] bf16, w [K, N] bf16 row-major,
+// bias [N] f32; K % 32 == 0, N % 8 == 0.
 struct GemmArgs {
-  const void* a;        // QKV: x bf16 [M,K]; FC1: x2 f32 [M,K]; else bf16 A
-  const float* ln_s;    // LN affine (QKV, FC1)
-  const float* ln_b;
-  const bf16* w;        // [K, N] row-major
-  const float* bias;    // [N]
-  const void* resid;    // PROJ: x bf16 [M,N]; FC2: x2 f32 [M,N]
-  void* out;            // QKV/FC1/FC2/PLAIN: bf16 [M,N]; PROJ: f32 [M,N]
+  const bf16* a;
+  const bf16* w;
+  const float* bias;
+  bf16* out;
   int m, n, k;
-  float eps;
-  // training only (null at inference):
-  const float* dp;      // PROJ/FC2: branch factor per window of `tokens` rows
-  int tokens;
-  bf16* h_save;         // QKV/FC1: the bf16 LN output [M,K]
-  float* stats_save;    // QKV/FC1: row mean and 1/std [M,2]
-  float* pre_save;      // FC1: f32 pre-GELU values [M,N]
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -70,90 +58,8 @@ constexpr size_t GEMM_SMEM_BYTES =
     align128((size_t)BK * (BN + B_PAD) * sizeof(bf16)) +
     (size_t)BM * (BN + C_PAD) * sizeof(float);
 
-// LayerNorm statistics of rows [m0, m0 + BM) of x [M, K]: one warp per
-// row, f32 mean then biased variance (two passes over the row, which the
-// A-tile loads then read a third time from L2).
-template <typename T>
-__device__ void ln_stats(const T* __restrict__ x, float* mu, float* rs,
-                         int m0, int M, int K, float eps,
-                         float* __restrict__ save) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-    const int gm = m0 + r;
-    if (gm >= M) {
-      if (lane == 0) mu[r] = rs[r] = 0.f;
-      continue;
-    }
-    const T* src = x + (size_t)gm * K;
-    float sum = 0.f;
-    for (int c = lane; c < K; c += 32) sum += to_f32(src[c]);
-    const float m = warp_sum(sum) / (float)K;
-    float sq = 0.f;
-    for (int c = lane; c < K; c += 32) {
-      const float d = to_f32(src[c]) - m;
-      sq += d * d;
-    }
-    const float r_std = rsqrtf(warp_sum(sq) / (float)K + eps);
-    if (lane == 0) {
-      mu[r] = m;
-      rs[r] = r_std;
-      if (save) {
-        save[2 * (size_t)gm] = m;
-        save[2 * (size_t)gm + 1] = r_std;
-      }
-    }
-  }
-}
-
-// 8 consecutive values of a row as f32 (x is 16-byte aligned there).
-__device__ __forceinline__ void load8(const bf16* p, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const bf16* h = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(h[e]);
-}
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// The A tile [BM, BK] at column k0 of LN(x), rounded to bf16.
-template <typename T>
-__device__ void load_ln_tile(const T* __restrict__ x,
-                             const float* __restrict__ s,
-                             const float* __restrict__ b, const float* mu,
-                             const float* rs, bf16* As, int lda, int m0,
-                             int k0, int M, int K, bf16* __restrict__ save) {
-  for (int i = threadIdx.x; i < BM * BK / 8; i += GEMM_THREADS) {
-    const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-    const int gm = m0 + r;
-    alignas(16) bf16 packed[8];
-    if (gm < M) {
-      float v[8];
-      load8(x + (size_t)gm * K + k0 + c, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        packed[e] = __float2bfloat16((v[e] - mu[r]) * rs[r] * s[k0 + c + e] +
-                                     b[k0 + c + e]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) packed[e] = __float2bfloat16(0.f);
-    }
-    *reinterpret_cast<uint4*>(As + r * lda + c) =
-        *reinterpret_cast<const uint4*>(packed);
-    if (save && gm < M)
-      *reinterpret_cast<uint4*>(save + (size_t)gm * K + k0 + c) =
-          *reinterpret_cast<const uint4*>(packed);
-  }
-}
-
-template <int MODE>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
-  constexpr bool kLN = (MODE == QKV || MODE == FC1);
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float row_mu[BM], row_rs[BM];
   const int M = g.m, N = g.n, K = g.k;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   constexpr int lda = BK + A_PAD, ldb = BN + B_PAD, ldc = BN + C_PAD;
@@ -165,18 +71,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   const int tid = threadIdx.x, warp = tid / 32;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
 
-  // the column-0 blocks load every column of their rows: they save them
-  const bool saver = blockIdx.x == 0;
-  float* stats_save = saver ? g.stats_save : nullptr;
-  bf16* h_save = saver ? g.h_save : nullptr;
-  if (MODE == QKV)
-    ln_stats(static_cast<const bf16*>(g.a), row_mu, row_rs, m0, M, K, g.eps,
-             stats_save);
-  if (MODE == FC1)
-    ln_stats(static_cast<const float*>(g.a), row_mu, row_rs, m0, M, K, g.eps,
-             stats_save);
-  if (kLN) __syncthreads();
-
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -185,22 +79,13 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
 
   const uint4 zero = make_uint4(0, 0, 0, 0);
   for (int k0 = 0; k0 < K; k0 += BK) {
-    if (MODE == QKV)
-      load_ln_tile(static_cast<const bf16*>(g.a), g.ln_s, g.ln_b, row_mu,
-                   row_rs, As, lda, m0, k0, M, K, h_save);
-    if (MODE == FC1)
-      load_ln_tile(static_cast<const float*>(g.a), g.ln_s, g.ln_b, row_mu,
-                   row_rs, As, lda, m0, k0, M, K, h_save);
-    if (!kLN) {
-      const bf16* A = static_cast<const bf16*>(g.a);
-      for (int i = tid; i < BM * BK / 8; i += GEMM_THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        const int gm = m0 + r;
-        const uint4 v = gm < M ? *reinterpret_cast<const uint4*>(
-                                     A + (size_t)gm * K + k0 + c)
-                               : zero;
-        *reinterpret_cast<uint4*>(As + r * lda + c) = v;
-      }
+    for (int i = tid; i < BM * BK / 8; i += GEMM_THREADS) {
+      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+      const int gm = m0 + r;
+      const uint4 v = gm < M ? *reinterpret_cast<const uint4*>(
+                                   g.a + (size_t)gm * K + k0 + c)
+                             : zero;
+      *reinterpret_cast<uint4*>(As + r * lda + c) = v;
     }
     for (int i = tid; i < BK * BN / 8; i += GEMM_THREADS) {
       const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
@@ -243,41 +128,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
     const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= M || gn >= N) continue;
-    const size_t o = (size_t)gm * N + gn;
-    float v[8];
+    alignas(16) bf16 packed[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = Cs[r * ldc + c + e] + g.bias[gn + e];
-    const float dpw = g.dp ? g.dp[gm / g.tokens] : 1.f;
-    if (MODE == PROJ) {
-      const bf16* res = static_cast<const bf16*>(g.resid) + o;
-      float* dst = static_cast<float*>(g.out) + o;
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = __bfloat162float(res[e]) + dpw * v[e];
-    } else {
-      alignas(16) bf16 packed[8];
-      if (MODE == QKV || MODE == PLAIN) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) packed[e] = __float2bfloat16(v[e]);
-      } else if (MODE == FC1) {
-        if (g.pre_save) {
-          float4* dst = reinterpret_cast<float4*>(g.pre_save + o);
-          dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-          dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          packed[e] = __float2bfloat16(
-              0.5f * v[e] * (1.f + erff(v[e] * 0.7071067811865476f)));
-      } else {  // FC2
-        const float* res = static_cast<const float*>(g.resid) + o;
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          packed[e] = __float2bfloat16(res[e] + dpw * v[e]);
-      }
-      *reinterpret_cast<uint4*>(static_cast<bf16*>(g.out) + o) =
-          *reinterpret_cast<const uint4*>(packed);
-    }
+    for (int e = 0; e < 8; ++e)
+      packed[e] = __float2bfloat16(Cs[r * ldc + c + e] + g.bias[gn + e]);
+    *reinterpret_cast<uint4*>(g.out + (size_t)gm * N + gn) =
+        *reinterpret_cast<const uint4*>(packed);
   }
 }
 
@@ -415,10 +271,9 @@ __global__ void __launch_bounds__(ATT_THREADS)
                  ctx + (size_t)w * T * C + h * HD, C, T, scale);
 }
 
-template <int MODE>
 int launch_gemm(const GemmArgs& g, cudaStream_t stream) {
   const dim3 grid((g.n + BN - 1) / BN, (g.m + BM - 1) / BM);
-  gemm_kernel<MODE><<<grid, GEMM_THREADS, GEMM_SMEM_BYTES, stream>>>(g);
+  gemm_kernel<<<grid, GEMM_THREADS, GEMM_SMEM_BYTES, stream>>>(g);
   return (int)cudaGetLastError();
 }
 

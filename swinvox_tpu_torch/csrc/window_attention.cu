@@ -10,7 +10,7 @@
 //
 // with the TPU kernel's rounding points (probabilities cast to v's dtype,
 // the product accumulated in f32).  One 128-thread block per (window,
-// head) runs swin_common.cuh's attention_tile, the device code kernel B's
+// head) runs swin_common.cuh's attention_tile, the device code kernel H's
 // attention launch runs on its packed qkv: wmma QK^T and PV with tokens
 // padded to 64 in shared memory only (pad keys get probability 0, pad
 // query rows are never written), so the [T, T] scores never reach device

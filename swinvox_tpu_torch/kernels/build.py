@@ -117,28 +117,30 @@ def _declare(lib: ctypes.CDLL) -> None:
     # (x, out, n_windows, nwh, nww, window, shift, sign, row_bytes, stream)
     lib.swinvox_rewindow.argtypes = [p, p, i64, i, i, i, i, i, i64, p]
     lib.swinvox_rewindow.restype = i
+    # the window map of kernels B, C, D: (nwh, nww, window, shift)
+    grid = [i, i, i, i]
     # (x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, rel_bias, mask, nw_img,
-    #  ln2s, ln2b, w1, b1, w2, b2, out, qkv, ctx, x2, hidden,
-    #  n_windows, tokens, channels, heads, scale, eps, stream)
+    #  ln2s, ln2b, w1, b1, w2, b2, out, h1, qkv, ctx, x2, h2, hidden,
+    #  n_windows, tokens, channels, heads, grid, scale, eps, stream)
     lib.swinvox_swin_block.argtypes = (
-        [p] * 9 + [i] + [p] * 11 + [i64, i, i, i, f, f, p]
+        [p] * 9 + [i] + [p] * 13 + [i64, i, i, i] + grid + [f, f, p]
     )
     lib.swinvox_swin_block.restype = i
     # (x, dp1, dp2, ln1s, ln1b, wqkv, bqkv, wproj, bproj, rel_bias, mask,
     #  nw_img, ln2s, ln2b, w1, b1, w2, b2, out, h1, stats1, qkv, ctx, x2,
-    #  h2, stats2, pre, hidden, n_windows, tokens, channels, heads, scale,
-    #  eps, stream)
+    #  h2, stats2, pre, hidden, n_windows, tokens, channels, heads, grid,
+    #  scale, eps, stream)
     lib.swinvox_swin_block_train_fwd.argtypes = (
-        [p] * 11 + [i] + [p] * 16 + [i64, i, i, i, f, f, p]
+        [p] * 11 + [i] + [p] * 16 + [i64, i, i, i] + grid + [f, f, p]
     )
     lib.swinvox_swin_block_train_fwd.restype = i
     lib.swinvox_swin_block_train_bwd_workspace.argtypes = [i64, i, i, i]
     lib.swinvox_swin_block_train_bwd_workspace.restype = i64
     # (dout, x, dp1, dp2, 9 saved, ln1s, wqkv, wproj, rel_bias, mask,
     #  nw_img, ln2s, w1, w2, 14 gradients, work, work_bytes, n_windows,
-    #  tokens, channels, heads, scale, stream)
+    #  tokens, channels, heads, grid, scale, stream)
     lib.swinvox_swin_block_train_bwd.argtypes = (
-        [p] * 18 + [i] + [p] * 17 + [p, i64, i64, i, i, i, f, p]
+        [p] * 18 + [i] + [p] * 17 + [p, i64, i64, i, i, i] + grid + [f, p]
     )
     lib.swinvox_swin_block_train_bwd.restype = i
     # merger stack: (x, w, bias, gamma, beta, raws, raw5, stats, work,

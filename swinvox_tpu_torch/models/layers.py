@@ -260,12 +260,49 @@ def _need(generator: Optional[torch.Generator]) -> torch.Generator:
     return generator
 
 
+class _MaxPool2(torch.autograd.Function):
+    """2x2x2, stride-2 max pool of NCDHW input (odd edges dropped) whose
+    gradient goes to the first maximum of each window, in window order
+    (d, h, w): as ``F.max_pool3d`` and JAX's ``select_and_scatter_add``.
+    The backward is elementwise (the incoming gradient times a one-hot of
+    that maximum), so its bits repeat, unlike the scatter of
+    ``max_pool3d_with_indices_backward``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        n, c, d, h, w = x.shape
+        win = x[..., :d // 2 * 2, :h // 2 * 2, :w // 2 * 2].reshape(
+            n, c, d // 2, 2, h // 2, 2, w // 2, 2)
+        win = win.permute(0, 1, 2, 4, 6, 3, 5, 7).reshape(
+            n, c, d // 2, h // 2, w // 2, 8)
+        first = win.argmax(-1, keepdim=True)  # the first maximum
+        ctx.save_for_backward(first)
+        ctx.shape = x.shape
+        return win.gather(-1, first)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (first,) = ctx.saved_tensors
+        n, c, d, h, w = ctx.shape
+        onehot = first == torch.arange(8, device=g.device)
+        gw = (g[..., None] * onehot).reshape(n, c, d // 2, h // 2, w // 2,
+                                             2, 2, 2)
+        gw = gw.permute(0, 1, 2, 5, 3, 6, 4, 7).reshape(
+            n, c, d // 2 * 2, h // 2 * 2, w // 2 * 2)
+        return F.pad(gw, (0, w % 2, 0, h % 2, 0, d % 2))
+
+
 def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
              padding: int = 0) -> torch.Tensor:
     """Max pool over the spatial dims of NCHW / NCDHW input (padding is
-    -inf, as the JAX trunk pads before its VALID pool)."""
+    -inf, as the JAX trunk pads before its VALID pool).  The refiner's
+    2x2x2 stride-2 pool has a deterministic backward (``_MaxPool2``);
+    every other window or stride is the stock pool."""
+    stride = stride or window
+    if x.dim() == 5 and window == stride == 2 and padding == 0:
+        return _MaxPool2.apply(x)
     pool = F.max_pool2d if x.dim() == 4 else F.max_pool3d
-    return pool(x, window, stride or window, padding)
+    return pool(x, window, stride, padding)
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -279,13 +316,46 @@ def adaptive_avg_pool_7_to_2(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 4, 3)
 
 
+_RESIZE_MATRICES = {}
+
+
+def _interp_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_out, n_in] f32 weights of 1-D linear upsampling with half-pixel
+    centres, the source clamped to the border; built once per size (a
+    normal tensor even when first asked for under inference mode, since
+    training reuses it)."""
+    key = (n_in, n_out, str(device))
+    if key not in _RESIZE_MATRICES:
+        with torch.inference_mode(False):
+            src = ((torch.arange(n_out, dtype=torch.float64) + 0.5)
+                   * (n_in / n_out) - 0.5).clamp(0, n_in - 1)
+            i0 = src.floor().long()
+            i1 = (i0 + 1).clamp(max=n_in - 1)
+            frac = src - i0
+            r = torch.zeros(n_out, n_in, dtype=torch.float64)
+            rows = torch.arange(n_out)
+            r[rows, i0] += 1 - frac
+            r[rows, i1] += frac
+            _RESIZE_MATRICES[key] = r.float().to(device)
+    return _RESIZE_MATRICES[key]
+
+
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of NCHW input with half-pixel centers.
 
-    Equals ``jax.image.resize(method="bilinear")``: on upsampling that is
-    ``F.interpolate(align_corners=False)`` (both clamp at the border); on
-    downsampling JAX antialiases, hence ``antialias=True``.
+    Equals ``jax.image.resize(method="bilinear")``.  Upsampling (no side
+    shrinks) is ``R_h x R_w^T`` in f32 with the interpolation matrices of
+    ``_interp_matrix``: ``F.interpolate(align_corners=False)``'s function,
+    whose forward and backward are products, so the gradient's bits repeat
+    (the CVA's upsampling trains through it).  Downsampling antialiases in
+    JAX, hence ``F.interpolate(antialias=True)``; no gradient goes through
+    it on any path.
     """
+    h, w = x.shape[-2:]
+    if size[0] >= h and size[1] >= w:
+        rh = _interp_matrix(h, size[0], x.device)
+        rw = _interp_matrix(w, size[1], x.device)
+        return torch.matmul(torch.matmul(rh, x.float()), rw.t()).to(x.dtype)
     y = F.interpolate(x.float(), size=size, mode="bilinear",
                       align_corners=False, antialias=True)
     return y.to(x.dtype)

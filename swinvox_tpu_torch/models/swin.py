@@ -25,9 +25,11 @@ Both paths draw the drop-path factors from the caller's generator in the
 same order (per block: the attention branch's, then the MLP's), so they
 drop the same branches.  With ``use_rewindow_chain``
 (``USE_REWINDOW_CHAIN``) on top of the fused path of the mode, a stage is
-partitioned once and tokens stay window-major from block to block, each
-layout change one ``ops/rewindow.rewindow`` (kernel A, forward and
-backward).  Unlike JAX, the chain runs on the CPU too, with the plain
+partitioned once and tokens stay window-major from block to block, in
+the aligned layout throughout: a shifted block's kernel reads and writes
+its shifted windows through the roll's map (where the JAX chain moves
+the tokens with ``rewindow``, kernel A), so the chain makes no relayout
+pass.  Unlike JAX, the chain runs on the CPU too, with the plain
 versions.
 """
 
@@ -55,7 +57,6 @@ from swinvox_tpu_torch.ops.pallas_swin_block import (
     fused_swin_block_train,
 )
 from swinvox_tpu_torch.ops.rewindow import (
-    rewindow,
     window_partition,
     window_unpartition,
 )
@@ -191,13 +192,12 @@ class SwinBlock(nn.Module):
         self,
         x: torch.Tensor,
         win_shape: Optional[Tuple[int, int, int]] = None,
-        win_layout: str = "aligned",
         train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """x: [B, H, W, C], or window-major [B*nW, T, C] tokens in
-        ``win_layout`` with ``win_shape=(B, H, W)`` (the stage chain);
-        returns the same layout kind (window-major: this block's own)."""
+        """x: [B, H, W, C], or aligned window-major [B*nW, T, C] tokens
+        with ``win_shape=(B, H, W)`` (the stage chain); returns the same
+        layout."""
         if win_shape is not None:
             b, h, w = win_shape
         else:
@@ -209,8 +209,8 @@ class SwinBlock(nn.Module):
             raise ValueError("window-major SwinBlock input requires the "
                              "fused-block path of this mode")
         if self.fused(train):
-            return self._fused(x, win_shape, win_layout, b, h, w, shift, mask,
-                               train, generator)
+            return self._fused(x, win_shape, b, h, w, shift, mask, train,
+                               generator)
 
         shortcut = x
         y = self.norm1(x)
@@ -229,22 +229,9 @@ class SwinBlock(nn.Module):
             y = self.drop_path2(y, train, generator)
         return x + y
 
-    def _fused(self, x, win_shape, win_layout, b, h, w, shift, mask, train,
-               generator):
-        if win_shape is not None:
-            y = x
-            want = "shifted" if shift > 0 else "aligned"
-            if win_layout != want:
-                y = rewindow(
-                    y.contiguous(), h // self.window, w // self.window,
-                    self.window, self.window // 2,
-                    -1 if want == "shifted" else 1,
-                )
-        else:
-            y = x
-            if shift > 0:
-                y = torch.roll(y, shifts=(-shift, -shift), dims=(1, 2))
-            y = window_partition(y, self.window)
+    def _fused(self, x, win_shape, b, h, w, shift, mask, train, generator):
+        y = x if win_shape is not None else window_partition(x, self.window)
+        grid = dict(nwh=h // self.window, nww=w // self.window, shift=shift)
         a, dt = self.attn, self.dtype
         weights = (
             self.norm1.scale, self.norm1.bias,
@@ -264,16 +251,13 @@ class SwinBlock(nn.Module):
             y = fused_swin_block_train(
                 y.contiguous(), dp1.repeat_interleave(per_img),
                 dp2.repeat_interleave(per_img), *weights,
-                num_heads=self.num_heads)
+                num_heads=self.num_heads, **grid)
         else:
             y = fused_swin_block(y.contiguous(), *weights,
-                                 num_heads=self.num_heads)
+                                 num_heads=self.num_heads, **grid)
         if win_shape is not None:
             return y
-        y = window_unpartition(y, self.window, h, w)
-        if shift > 0:
-            y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
-        return y
+        return window_unpartition(y, self.window, h, w)
 
 
 class PatchMerging(nn.Module):
@@ -358,22 +342,16 @@ class SwinTiny(nn.Module):
             if stage_idx > 0:
                 x = getattr(self, f"merge{stage_idx}")(x)
             bb, hh, ww, _ = x.shape
-            small = hh <= win and ww <= win
             if chain:
                 xw = window_partition(x, win)
-                layout = "aligned"
             for d in range(depth):
                 blk = getattr(self, f"stage{stage_idx}_block{d}")
                 if chain:
-                    xw = blk(xw, win_shape=(bb, hh, ww), win_layout=layout,
-                             train=train, generator=generator)
-                    eff_shift = 0 if small else blk.shift
-                    layout = "shifted" if eff_shift > 0 else "aligned"
+                    xw = blk(xw, win_shape=(bb, hh, ww), train=train,
+                             generator=generator)
                 else:
                     x = blk(x, train=train, generator=generator)
             if chain:
                 x = window_unpartition(xw, win, hh, ww)
-                if layout == "shifted":
-                    x = torch.roll(x, shifts=(win // 2, win // 2), dims=(1, 2))
             features.append(x)
         return features

@@ -15,6 +15,7 @@ submodules are named encoder/decoder/merger/refiner as in the flax tree.
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -28,6 +29,17 @@ from swinvox_tpu_torch.models.merger import Merger
 from swinvox_tpu_torch.models.refiner import Refiner
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# The routes whose kernels take bf16 tokens only: the Swin block (B; C
+# and D), the fused W-MSA (H) and the merger stack (E, F).
+BF16_ONLY_ROUTES = {
+    "USE_PALLAS_SWIN_BLOCK": "B",
+    "USE_PALLAS_SWIN_BLOCK_TRAIN": "C, D",
+    "USE_PALLAS_WINDOW_ATTENTION": "H",
+    "USE_MERGER_STACK": "E, F",
+}
+
+log = logging.getLogger(__name__)
 
 
 class SwinVoxModel(nn.Module):
@@ -95,8 +107,21 @@ class SwinVoxModel(nn.Module):
     ) -> "SwinVoxModel":
         """The model ``cfg.NETWORK`` describes, initialized as the JAX
         package initializes it from ``generator`` (default: seeded with
-        ``cfg.CONST.RNG_SEED``)."""
+        ``cfg.CONST.RNG_SEED``).
+
+        At ``COMPUTE_DTYPE`` float32 the routes of ``BF16_ONLY_ROUTES``
+        resolve to their plain paths (their kernels take bf16 only; the
+        wrappers still raise on f32 tokens).  ``model.kernel_routes``
+        holds those four flags as resolved."""
         net = cfg.NETWORK
+        flags = {f: bool(getattr(net, f)) for f in BF16_ONLY_ROUTES}
+        if net.COMPUTE_DTYPE == "float32":
+            off = [f for f, on in flags.items() if on]
+            if off:
+                log.info("float32 compute: %s run their plain paths "
+                         "(kernels %s take bfloat16 only)", ", ".join(off),
+                         "; ".join(BF16_ONLY_ROUTES[f] for f in off))
+            flags = dict.fromkeys(flags, False)
         model = cls(
             use_swin_multi_stage=net.USE_SWIN_T_MULTI_STAGE,
             swin_stages=tuple(net.SWIN_T_STAGES),
@@ -110,14 +135,14 @@ class SwinVoxModel(nn.Module):
             tconv_use_bias=net.TCONV_USE_BIAS,
             dtype=_DTYPES[net.COMPUTE_DTYPE],
             merger_single_view_identity=net.MERGER_SINGLE_VIEW_IDENTITY,
-            use_pallas_swin_block=net.USE_PALLAS_SWIN_BLOCK,
-            use_pallas_swin_block_train=net.USE_PALLAS_SWIN_BLOCK_TRAIN,
+            use_pallas_swin_block=flags["USE_PALLAS_SWIN_BLOCK"],
+            use_pallas_swin_block_train=flags["USE_PALLAS_SWIN_BLOCK_TRAIN"],
             use_rewindow_chain=net.USE_REWINDOW_CHAIN,
             swin_depths=tuple(net.SWIN_DEPTHS),
             resnet_stage_depths=tuple(net.RESNET_STAGE_DEPTHS),
-            use_merger_stack=net.USE_MERGER_STACK,
+            use_merger_stack=flags["USE_MERGER_STACK"],
             merger_stack_max_volumes=net.MERGER_STACK_MAX_VOLUMES,
-            use_pallas=net.USE_PALLAS_WINDOW_ATTENTION,
+            use_pallas=flags["USE_PALLAS_WINDOW_ATTENTION"],
             use_pallas_merger=net.USE_PALLAS_MERGER,
             use_slab_merger=net.USE_SLAB_MERGER,
             use_pallas_merger_train=net.USE_PALLAS_MERGER_TRAIN,
@@ -126,6 +151,7 @@ class SwinVoxModel(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.CONST.RNG_SEED)
         init_reference_(model, generator, net.INIT_SCHEME)
+        model.kernel_routes = flags
         return model
 
     def forward(

@@ -24,6 +24,18 @@ in float32.
 Tokens are unpadded, [nW, T, C] with T = window**2 = 49: the JAX kernel's
 padding to 64 (with a -1e9 bias on pad keys) is a Mosaic tiling need and
 changes nothing on the logical tokens.
+
+Tokens come in the *aligned* window-major layout of an image grid of
+``nwh`` x ``nww`` windows.  A shifted block (``shift`` > 0) attends over
+the windows of the image rolled by ``-shift``: the JAX package moves the
+tokens there and back with ``rewindow`` around its kernel, while the
+kernels here fetch q, k, v of shifted window w, token t from the aligned
+row the roll maps it to and write the attention's output back to that
+row.  Everything else in the block is per token and the drop-path
+factors are per image, so the layout change costs no pass and no
+launch.  The plain versions relayout qkv and the attention's output with
+``rewindow_reference``: with per-image factors, the JAX chain's
+``rewindow`` -> block -> ``rewindow``, layout for layout.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import torch.nn.functional as F
 
 from swinvox_tpu_torch.kernels import build
 from swinvox_tpu_torch.models.layers import mm_f32
+from swinvox_tpu_torch.ops.rewindow import rewindow_reference
 
 
 def _ln(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -44,9 +57,19 @@ def _ln(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x32 - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
+def _shifted(x, nwh, nww, shift, sign):
+    """[nW, T, C] tokens from the aligned windows to the shifted ones
+    (sign -1) or back (+1), as ``rewindow_reference``; the identity at
+    shift 0."""
+    if not shift:
+        return x
+    win = round(x.shape[1] ** 0.5)
+    return rewindow_reference(x, nwh, nww, win, shift, sign)
+
+
 def _block(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
            rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
-           scale, eps):
+           scale, eps, nwh=0, nww=0, shift=0):
     nw, t, c = x.shape
     hd = c // num_heads
     if scale is None:
@@ -54,7 +77,8 @@ def _block(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
     dtype = x.dtype
     x32 = x.float()
     h = _ln(x32, ln1_scale, ln1_bias, eps).to(dtype)
-    qkv = (mm_f32(h, wqkv) + bqkv.float()).to(dtype)
+    qkv = _shifted((mm_f32(h, wqkv) + bqkv.float()).to(dtype), nwh, nww,
+                   shift, -1)
     q, k, v = qkv.view(nw, t, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     s = mm_f32(q, k.transpose(-1, -2)) * scale + rel_bias.float()[None]
     if mask is not None:
@@ -64,7 +88,8 @@ def _block(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
         s = s.view(nw, num_heads, t, t)
     p = torch.softmax(s, dim=-1)
     ctx = mm_f32(p.to(dtype), v).to(dtype)  # [nW, heads, T, hd]
-    ctx = ctx.permute(0, 2, 1, 3).reshape(nw, t, c)
+    ctx = _shifted(ctx.permute(0, 2, 1, 3).reshape(nw, t, c), nwh, nww,
+                   shift, 1)
     attn = mm_f32(ctx, wproj) + bproj.float()
     x2 = x32 + (attn if dp1 is None else dp1.float().view(-1, 1, 1) * attn)
     h2 = _ln(x2, ln2_scale, ln2_bias, eps).to(dtype)
@@ -87,11 +112,14 @@ def swin_block_reference(
     num_heads: int,
     scale: Optional[float] = None,
     eps: float = 1e-5,
+    nwh: int = 0, nww: int = 0, shift: int = 0,
 ) -> torch.Tensor:
-    """Plain PyTorch Swin block: [nW, T, C] -> [nW, T, C] in x.dtype."""
+    """Plain PyTorch Swin block: [nW, T, C] -> [nW, T, C] in x.dtype, the
+    tokens aligned windows of an ``nwh`` x ``nww`` grid per image, the
+    attention over the windows shifted by ``shift`` (0: aligned)."""
     return _block(x, None, None, ln1_scale, ln1_bias, wqkv, bqkv, wproj,
                   bproj, rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2,
-                  num_heads, scale, eps)
+                  num_heads, scale, eps, nwh, nww, shift)
 
 
 def swin_block_train_reference(
@@ -107,6 +135,7 @@ def swin_block_train_reference(
     num_heads: int,
     scale: Optional[float] = None,
     eps: float = 1e-5,
+    nwh: int = 0, nww: int = 0, shift: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch training Swin block (kernels C and D's plain
     version): ``swin_block_reference`` with the two residual branches
@@ -114,19 +143,33 @@ def swin_block_train_reference(
     ops gives the gradient."""
     return _block(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj,
                   bproj, rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2,
-                  num_heads, scale, eps)
+                  num_heads, scale, eps, nwh, nww, shift)
 
 
-def _check_cuda(x, num_heads, tensors) -> None:
+# the widths kernels B, C and D are built for (Swin-T's four stages)
+WIDTHS = (96, 192, 384, 768)
+
+_NAMES = ("x", "ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
+          "rel_bias", "mask", "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
+
+
+def _check_cuda(x, num_heads, tensors, nwh, nww, shift) -> None:
     nw, t, c = x.shape
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_swin_block: the kernel takes bfloat16 "
                          f"tokens, got {x.dtype}")
-    if c % 32 or c // num_heads != 32 or c % num_heads:
+    if c not in WIDTHS or c // num_heads != 32 or c % num_heads:
         raise ValueError(f"fused_swin_block: the kernel takes head_dim 32 "
-                         f"and C % 32 == 0, got C={c}, heads={num_heads}")
-    if t > 64:
-        raise ValueError(f"fused_swin_block: at most 64 tokens, got {t}")
+                         f"and C in {WIDTHS}, got C={c}, heads={num_heads}")
+    win = round(t**0.5)
+    if t > 64 or win * win != t:
+        raise ValueError(f"fused_swin_block: a square window of at most 64 "
+                         f"tokens, got {t}")
+    if shift and (not 0 < shift < win or nwh < 1 or nww < 1
+                  or nw % (nwh * nww)):
+        raise ValueError(f"fused_swin_block: shift {shift} needs 0 < shift "
+                         f"< {win} and nW={nw} a multiple of the "
+                         f"{nwh} x {nww} grid")
     want = {
         "wqkv": ((c, 3 * c), torch.bfloat16),
         "wproj": ((c, c), torch.bfloat16),
@@ -159,6 +202,11 @@ def _check_cuda(x, num_heads, tensors) -> None:
                          "with nW a multiple of nW_img")
 
 
+def _grid(t, nwh, nww, shift):
+    """The window map's launch arguments: (nwh, nww, window, shift)."""
+    return (nwh, nww, round(t**0.5), shift) if shift else (1, 1, 1, 0)
+
+
 def fused_swin_block(
     x: torch.Tensor,
     ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
@@ -172,41 +220,48 @@ def fused_swin_block(
     num_heads: int,
     scale: Optional[float] = None,
     eps: float = 1e-5,
+    nwh: int = 0, nww: int = 0, shift: int = 0,
 ) -> torch.Tensor:
-    """Whole Swin block on window-major tokens: x [nW, T, C] -> [nW, T, C].
+    """Whole Swin block on aligned window-major tokens: x [nW, T, C] ->
+    [nW, T, C], the attention over the windows of the image rolled by
+    ``-shift`` on a grid of ``nwh`` x ``nww`` windows per image.
 
     Weights come in the compute dtype as [in, out]; LayerNorm affines,
-    biases, ``rel_bias`` [heads, T, T] and ``mask`` [nW_img, T, T] (or
-    None) in float32.  A CPU tensor runs the plain version; a CUDA tensor
-    launches kernel B or raises.  ``launches`` counts block calls on the
-    card (each is five CUDA launches, see the source note).
+    biases, ``rel_bias`` [heads, T, T] and ``mask`` [nW_img, T, T] of the
+    shifted windows (or None) in float32.  A CPU tensor runs the plain
+    version; a CUDA tensor launches kernel B or raises.  ``launches``
+    counts block calls on the card (each is six CUDA launches, see the
+    source note).
     """
     args = (x, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj, rel_bias, mask,
             ln2_scale, ln2_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
-        return swin_block_reference(*args, num_heads, scale, eps)
+        return swin_block_reference(*args, num_heads, scale, eps, nwh, nww,
+                                    shift)
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_swin_block: unsupported device {x.device}")
-    names = ("x", "ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
-             "rel_bias", "mask", "ln2_scale", "ln2_bias", "w1", "b1", "w2",
-             "b2")
-    _check_cuda(x, num_heads, dict(zip(names, args)))
+    _check_cuda(x, num_heads, dict(zip(_NAMES, args)), nwh, nww, shift)
     nw, t, c = x.shape
     if scale is None:
         scale = (c // num_heads) ** -0.5
     lib = build.library()
     rows = nw * t
     out = torch.empty_like(x)
-    qkv = torch.empty(rows, 3 * c, dtype=torch.bfloat16, device=x.device)
-    ctx = torch.empty(rows, c, dtype=torch.bfloat16, device=x.device)
-    x2 = torch.empty(rows, c, dtype=torch.float32, device=x.device)
-    hidden = torch.empty(rows, 4 * c, dtype=torch.bfloat16, device=x.device)
+    # scratch h1, qkv, ctx, x2, h2, hidden: one allocation, 256-byte parts
+    sizes = [rows * c * 2, rows * 3 * c * 2, rows * c * 2, rows * c * 4,
+             rows * c * 2, rows * 4 * c * 2]
+    offs = [0]
+    for n in sizes[:-1]:
+        offs.append(offs[-1] + (n + 255) // 256 * 256)
+    work = torch.empty(offs[-1] + sizes[-1], dtype=torch.uint8,
+                       device=x.device)
+    base = work.data_ptr()
     ptr = [None if a is None else a.data_ptr() for a in args]
     with torch.cuda.device(x.device):
         err = lib.swinvox_swin_block(
             *ptr[:9], 0 if mask is None else mask.shape[0], *ptr[9:],
-            out.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), x2.data_ptr(),
-            hidden.data_ptr(), nw, t, c, num_heads, float(scale), float(eps),
+            out.data_ptr(), *(base + o for o in offs), nw, t, c, num_heads,
+            *_grid(t, nwh, nww, shift), float(scale), float(eps),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(err, "fused_swin_block")
@@ -225,18 +280,15 @@ _SAVED = ("h1", "stats1", "qkv", "ctx", "x2", "h2", "stats2", "pre", "hidden")
 def swin_block_train_forward(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv,
                              wproj, bproj, rel_bias, mask, ln2_scale,
                              ln2_bias, w1, b1, w2, b2, num_heads, scale,
-                             eps):
+                             eps, nwh=0, nww=0, shift=0):
     """Kernel C: the block's forward on the card with the factors dp1, dp2
     [nW] (float32) on its two residual branches.  Returns ``(out, saved)``,
-    ``saved`` the intermediates kernel D reads: LN1 and LN2 outputs (bf16)
-    with their row mean and 1/std, qkv, ctx (bf16), x2 (f32), the f32
-    pre-GELU values and the bf16 GELU output."""
+    ``saved`` the intermediates kernel D reads, all in the aligned layout:
+    LN1 and LN2 outputs (bf16) with their row mean and 1/std, qkv, ctx
+    (bf16), x2 (f32), the f32 pre-GELU values and the bf16 GELU output."""
     args = (x, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj, rel_bias, mask,
             ln2_scale, ln2_bias, w1, b1, w2, b2)
-    names = ("x", "ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
-             "rel_bias", "mask", "ln2_scale", "ln2_bias", "w1", "b1", "w2",
-             "b2")
-    _check_cuda(x, num_heads, dict(zip(names, args)))
+    _check_cuda(x, num_heads, dict(zip(_NAMES, args)), nwh, nww, shift)
     nw, t, c = x.shape
     for name, d in (("dp1", dp1), ("dp2", dp2)):
         if (d.dtype != torch.float32 or tuple(d.shape) != (nw,)
@@ -265,8 +317,8 @@ def swin_block_train_forward(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv,
             ptr[0], dp1.data_ptr(), dp2.data_ptr(), *ptr[1:9],
             0 if mask is None else mask.shape[0], *ptr[9:],
             out.data_ptr(), *(saved[k].data_ptr() for k in _SAVED),
-            nw, t, c, num_heads, float(scale), float(eps),
-            torch.cuda.current_stream(dev).cuda_stream,
+            nw, t, c, num_heads, *_grid(t, nwh, nww, shift), float(scale),
+            float(eps), torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "swin block train forward")
     swin_block_train_forward.launches += 1
@@ -276,22 +328,18 @@ def swin_block_train_forward(x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv,
 swin_block_train_forward.launches = 0
 
 
-# the widths kernel D is built for (Swin-T's four stages)
-TRAIN_BWD_WIDTHS = (96, 192, 384, 768)
-
-
 def swin_block_train_backward(dout, x, dp1, dp2, saved, ln1_scale, wqkv,
                               wproj, rel_bias, mask, ln2_scale, w1, w2,
-                              num_heads, scale):
+                              num_heads, scale, nwh=0, nww=0, shift=0):
     """Kernel D: the block's backward from ``dout`` and kernel C's saved
     intermediates.  Returns dx (bf16), the LayerNorm and bias gradients
     and ``rel_bias``'s (float32), and the four weight gradients in their
     operands' dtype (bf16: the model casts its f32 weights to bf16 before
     the block, and the cast's gradient widens them again)."""
     nw, t, c = x.shape
-    if c not in TRAIN_BWD_WIDTHS:
+    if c not in WIDTHS:
         raise ValueError(f"swin block train backward: C={c} not in "
-                         f"{TRAIN_BWD_WIDTHS}")
+                         f"{WIDTHS}")
     dout = dout.to(torch.bfloat16).contiguous()
     if dout.data_ptr() % 16:  # the kernel copies 16-byte chunks
         dout = dout.clone()
@@ -324,7 +372,8 @@ def swin_block_train_backward(dout, x, dp1, dp2, saved, ln1_scale, wqkv,
             rel_bias.data_ptr(), None if mask is None else mask.data_ptr(),
             0 if mask is None else mask.shape[0], ln2_scale.data_ptr(),
             w1.data_ptr(), w2.data_ptr(), *(v.data_ptr() for v in g.values()),
-            work.data_ptr(), ws, nw, t, c, num_heads, float(scale),
+            work.data_ptr(), ws, nw, t, c, num_heads,
+            *_grid(t, nwh, nww, shift), float(scale),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "swin block train backward")
@@ -339,17 +388,18 @@ class _SwinBlockTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj,
                 bproj, rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2,
-                num_heads, scale, eps):
+                num_heads, scale, eps, nwh, nww, shift):
         dp1 = dp1.float().contiguous()
         dp2 = dp2.float().contiguous()
         out, saved = swin_block_train_forward(
             x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
             rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
-            scale, eps)
+            scale, eps, nwh, nww, shift)
         ctx.save_for_backward(x, dp1, dp2, ln1_scale, wqkv, wproj, rel_bias,
                               mask, ln2_scale, w1, w2,
                               *(saved[k] for k in _SAVED))
         ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.grid = (nwh, nww, shift)
         return out
 
     @staticmethod
@@ -359,11 +409,12 @@ class _SwinBlockTrain(torch.autograd.Function):
         g = swin_block_train_backward(
             dout, x, dp1, dp2, dict(zip(_SAVED, rest)), ln1_scale, wqkv,
             wproj, rel_bias, mask, ln2_scale, w1, w2, ctx.num_heads,
-            ctx.scale)
+            ctx.scale, *ctx.grid)
         return (g["dx"], None, None, g["dln1_scale"], g["dln1_bias"],
                 g["dwqkv"], g["dbqkv"], g["dwproj"], g["dbproj"],
                 g["drel_bias"], None, g["dln2_scale"], g["dln2_bias"],
-                g["dw1"], g["db1"], g["dw2"], g["db2"], None, None, None)
+                g["dw1"], g["db1"], g["dw2"], g["db2"], None, None, None,
+                None, None, None)
 
 
 def fused_swin_block_train(
@@ -379,6 +430,7 @@ def fused_swin_block_train(
     num_heads: int,
     scale: Optional[float] = None,
     eps: float = 1e-5,
+    nwh: int = 0, nww: int = 0, shift: int = 0,
 ) -> torch.Tensor:
     """Differentiable training Swin block on window-major tokens, with
     per-window stochastic-depth factors dp1, dp2 [nW] (1/keep or 0).
@@ -393,8 +445,10 @@ def fused_swin_block_train(
     args = (x, dp1, dp2, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
             rel_bias, mask, ln2_scale, ln2_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
-        return swin_block_train_reference(*args, num_heads, scale, eps)
+        return swin_block_train_reference(*args, num_heads, scale, eps, nwh,
+                                          nww, shift)
     if x.device.type != "cuda":
         raise RuntimeError(
             f"fused_swin_block_train: unsupported device {x.device}")
-    return _SwinBlockTrain.apply(*args, num_heads, float(scale), float(eps))
+    return _SwinBlockTrain.apply(*args, num_heads, float(scale), float(eps),
+                                 nwh, nww, shift)

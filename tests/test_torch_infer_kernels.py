@@ -145,6 +145,7 @@ def test_eval_wmsa_forward_calls_kernel_h_per_block(monkeypatch):
     no block or rewindow call: the counts chip_smoke.py expects of the
     ``eval-wmsa`` configuration."""
     from swinvox_tpu_torch.models import swin as port_swin
+    from swinvox_tpu_torch.ops import rewindow as port_rw
 
     calls = {"wmsa": 0, "block": 0, "rewindow": 0}
 
@@ -154,11 +155,10 @@ def test_eval_wmsa_forward_calls_kernel_h_per_block(monkeypatch):
             return fn(*a, **k)
         return wrapped
 
-    for name, attr in (("wmsa", "fused_window_msa"),
-                       ("block", "fused_swin_block"),
-                       ("rewindow", "rewindow")):
-        monkeypatch.setattr(port_swin, attr,
-                            counting(name, getattr(port_swin, attr)))
+    for name, mod, attr in (("wmsa", port_swin, "fused_window_msa"),
+                            ("block", port_swin, "fused_swin_block"),
+                            ("rewindow", port_rw, "rewindow")):
+        monkeypatch.setattr(mod, attr, counting(name, getattr(mod, attr)))
     model = port_swin.SwinTiny(embed_dim=32, num_heads=(1, 2, 4, 8),
                                dtype=torch.float32, use_pallas_block=False,
                                use_pallas=True)

@@ -142,8 +142,9 @@ def test_swin_chained_stage_parity(rng):
 
 def test_serving_chain_calls_each_kernel_as_the_card_counts(monkeypatch):
     """At Swin-T depths (2, 2, 6, 2) and 224^2 input one forward makes 12
-    fused-block calls (2+2+6+2) and 7 rewindow calls (1+1+5; the 7x7
-    stage zeroes its shift): the counts chip_smoke.py expects per batch."""
+    fused-block calls (2+2+6+2) and no rewindow call (the chain stays
+    aligned: the shifted blocks' kernels read their windows through the
+    roll's map): the counts chip_smoke.py expects per batch."""
     from swinvox_tpu_torch.models import swin as port_swin
 
     calls = {"block": 0, "rewindow": 0}
@@ -156,8 +157,8 @@ def test_serving_chain_calls_each_kernel_as_the_card_counts(monkeypatch):
 
     monkeypatch.setattr(port_swin, "fused_swin_block",
                         counting("block", port_swin.fused_swin_block))
-    monkeypatch.setattr(port_swin, "rewindow",
-                        counting("rewindow", port_swin.rewindow))
+    monkeypatch.setattr(port_rw, "rewindow",
+                        counting("rewindow", port_rw.rewindow))
     model = port_swin.SwinTiny(embed_dim=8, num_heads=(1, 1, 1, 1),
                                dtype=torch.float32, use_pallas_block=True)
     for p in model.parameters():
@@ -166,7 +167,7 @@ def test_serving_chain_calls_each_kernel_as_the_card_counts(monkeypatch):
         feats = model(torch.zeros(1, 224, 224, 3))
     assert [tuple(f.shape) for f in feats] == [
         (1, 56, 56, 8), (1, 28, 28, 16), (1, 14, 14, 32), (1, 7, 7, 64)]
-    assert calls == {"block": 12, "rewindow": 7}
+    assert calls == {"block": 12, "rewindow": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -181,8 +182,9 @@ def test_wrappers_refuse_other_devices():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """On a card: kernel A is exact, kernel B within twice the error of the
-    bf16 plain version (both against the f32 plain version) plus 1e-2."""
+    """On a card: kernel A is exact, kernel B (a shifted block on aligned
+    tokens) within twice the error of the bf16 plain version (both against
+    the f32 plain version) plus 1e-2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this on the H100")
     from swinvox_tpu_torch.models.swin import shifted_window_mask
@@ -207,9 +209,10 @@ def test_kernels_match_plain_on_card():
     bf = list(f32)
     for i in (0, 3, 5, 11, 13):
         bf[i] = f32[i].bfloat16()
-    ref = port_block.swin_block_reference(*f32, num_heads=heads)
-    plain = port_block.swin_block_reference(*bf, num_heads=heads).float()
-    got = port_block.fused_swin_block(*bf, num_heads=heads).float()
+    kw = dict(num_heads=heads, nwh=4, nww=4, shift=3)  # 4 images, 28^2
+    ref = port_block.swin_block_reference(*f32, **kw)
+    plain = port_block.swin_block_reference(*bf, **kw).float()
+    got = port_block.fused_swin_block(*bf, **kw).float()
     torch.cuda.synchronize()
     err_plain = (plain - ref).abs().max().item()
     assert (got - ref).abs().max().item() <= 2 * err_plain + 1e-2

@@ -127,10 +127,13 @@ def test_from_config_flags(models):
     the rewindow chain, the W-MSA kernel (USE_PALLAS_WINDOW_ATTENTION,
     reached without the block kernel), the inference merger kernel, and
     the training routes of kernels J, K (the slab and banded merger
-    convs) and L (the refiner's down1 backward)."""
+    convs) and L (the refiner's down1 backward).  At bfloat16: at
+    float32 from_config resolves the bf16-only routes to the plain path
+    (tests/test_torch_repairs.py)."""
     from swinvox_tpu_torch.models.swinvox import SwinVoxModel
 
     cfg = nano_config()
+    cfg.NETWORK.COMPUTE_DTYPE = "bfloat16"
     m = SwinVoxModel.from_config(cfg)
     assert m.encoder.swin.chain
     blk = m.encoder.swin.stage0_block0
@@ -159,11 +162,20 @@ def test_from_config_flags(models):
 
 def test_unfused_path_matches_kernel_path(models):
     """USE_PALLAS_SWIN_BLOCK off (plain LN / WindowMSA / MLP modules) gives
-    the kernel path's result on the same weights, f32, atol 1e-5."""
+    the kernel path's result on the same weights, f32, atol 1e-5.
+    from_config resolves f32 to the plain modules, so the fused chain (kernel
+    B's plain version on the CPU) is switched on here by hand."""
+    from swinvox_tpu_torch.models.swin import SwinBlock
     from swinvox_tpu_torch.models.swinvox import SwinVoxModel
 
-    cfg, _, variables, port = models
+    cfg, _, variables, _ = models
     cfg = nano_config()
+    port = SwinVoxModel.from_config(cfg)
+    load_jax_variables(port, variables)
+    port.encoder.swin.chain = True
+    for blk in port.modules():
+        if isinstance(blk, SwinBlock):
+            blk.use_pallas_block = True
     cfg.NETWORK.USE_PALLAS_SWIN_BLOCK = False
     cfg.NETWORK.USE_PALLAS_WINDOW_ATTENTION = False
     plain = SwinVoxModel.from_config(cfg)

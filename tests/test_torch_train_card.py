@@ -1,7 +1,8 @@
 """Kernel D (the training Swin block's backward, csrc/swin_block_train.cu)
 on a card, at a small stage shape: 2 images of 8 x 8 windows at C = 96
-(stage 0's width), aligned and shifted, drop-path factors 0, 1 and 1/0.9
-across the windows.  Its gradients against ``swin_block_train_reference``
+(stage 0's width), aligned and shifted (aligned tokens, the attention
+over the windows shifted by 3 through the roll's map), drop-path factors
+0, 1 and 1/0.9 across the windows.  Its gradients against ``swin_block_train_reference``
 (autograd through plain ops) by chip_smoke.py's phase 8 rule: each within
 2 x the bf16 plain block's error from the f32 plain block + 1e-2 (dx by
 max-abs, the parameters by relative L2).  The file imports no JAX, so
@@ -38,11 +39,11 @@ def _operands(g, images, side, c, heads, shifted):
     return ops, r(images * per, 49, c).bfloat16()
 
 
-def _grads(fn, ops, dout, heads):
+def _grads(fn, ops, dout, heads, grid):
     leaves = {k: (v if v is None else
                   v.detach().clone().requires_grad_(k in GRAD))
               for k, v in ops.items()}
-    out = fn(**leaves, num_heads=heads)
+    out = fn(**leaves, num_heads=heads, **grid)
     grads = torch.autograd.grad(out, [leaves[k] for k in GRAD],
                                 dout.to(out.dtype))
     return dict(zip(GRAD, grads))
@@ -58,16 +59,17 @@ def test_swin_block_train_backward_matches_plain_on_card(shifted):
     g = torch.Generator(device="cuda").manual_seed(1)
     f32, dout = _operands(g, images, side, c, heads, shifted)
     bf = {k: (v.bfloat16() if k in BF16 else v) for k, v in f32.items()}
+    grid = dict(nwh=side // 7, nww=side // 7, shift=3) if shifted else {}
     launches = blk.swin_block_train_backward.launches
-    kern = _grads(blk.fused_swin_block_train, bf, dout, heads)
+    kern = _grads(blk.fused_swin_block_train, bf, dout, heads, grid)
     assert blk.swin_block_train_backward.launches == launches + 1
-    plain = _grads(blk.swin_block_train_reference, bf, dout, heads)
+    plain = _grads(blk.swin_block_train_reference, bf, dout, heads, grid)
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        ref = _grads(blk.swin_block_train_reference, f32, dout, heads)
+        ref = _grads(blk.swin_block_train_reference, f32, dout, heads, grid)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
