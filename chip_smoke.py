@@ -4,9 +4,13 @@ evaluation entry point and training entry point on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
     python3 chip_smoke.py --eval-only   # phases 1, 2 and 14 only
+    python3 chip_smoke.py --merger-stack  # phases 1, 2, 9 and two steps
 
 ``--eval-only`` re-reads the evaluation gates alone, e.g. on a copy of
 the sources with a fault planted in a kernel, in a third of the time.
+``--merger-stack`` runs phase 9 and the profiler's device time of one
+kernel-path training step at batch 32 / 1 view and batch 16 / 3 views,
+the readings of kernels E and F alone (about a minute).
 
 It imports torch and swinvox_tpu_torch only.  Phases (any failure
 raises, so the exit code is nonzero):
@@ -49,11 +53,13 @@ raises, so the exit code is nonzero):
      and D's achieved TFLOP/s and GB/s (of its own bytes) per stage shape
      and its device time by kernel group (KERNEL_GROUPS) over one call;
   9. kernels E and F (merger stack forward and backward) against their
-     plain version at N = 32 (forward) and N = 48 (forward and backward),
-     by the same rule: raw5, means and variances by max-abs; dx, dW, db,
-     dgamma and dbeta by relative L2 (the conv biases of layers 0..4 feed
-     a train-mode BatchNorm, so their true gradient is 0: their error is
-     taken relative to the same layer's dbeta);
+     plain version at N = 32 and N = 48, forward and backward, by the
+     same rule: raw5, means and variances by max-abs; dx, dW, db, dgamma
+     and dbeta by relative L2 (the conv biases of layers 0..4 feed a
+     train-mode BatchNorm, so their true gradient is 0: their error is
+     taken relative to the same layer's dbeta); E and F called twice on
+     the same inputs give the same bits; the device time of one E and
+     one F call by launch group (MERGER_GROUPS, profiler);
  10. the training step of the full-width default config at batch 32, 1
      view, through create_train_state / make_train_step: from one state
      and one dropout seed, one step on three paths — bf16 with kernels,
@@ -74,7 +80,9 @@ raises, so the exit code is nonzero):
      first;
  11. one step at batch 16, 3 views (merger stack engaged: E 1, F 1), held
      as in phase 10; the step's merger-stack call is recorded and held
-     against the plain stack on its inputs by phase 9's rule;
+     against the plain stack on its inputs by phase 9's rule; then the
+     kernel path's device time of one such step (profiler, by kernel
+     group, after two warm-up steps);
  12. training speed at batch 32, 1 view: step wall time over 20 steps, a
      profiler breakdown of one step by kernel group (KERNEL_GROUPS: D's
      GEMMs, GEMMs with the LayerNorm backward, LayerNorm and sums, and
@@ -136,7 +144,9 @@ raises, so the exit code is nonzero):
      with REFINER_DOWN1_PALLAS, E 1 and F 1 on the stack; per validation
      forward B 12, and J 6 on the slab route; A 0 everywhere); batch
      losses finite; every J, K and L call of the slab and band runs held
-     against the plain version on its own inputs (phase 15's rules).
+     against the plain version on its own inputs (phase 15's rules), and
+     every E and F call of ``train-default`` against the plain stack on
+     its own inputs and output gradient (phase 9's rule).
      Then ``train-slab`` resumes from its epoch-1 checkpoint (its
      epoch_idx set to 1: the JAX package's resume starts again at the
      epoch a checkpoint was saved after) and runs epoch 2 again: its
@@ -409,10 +419,12 @@ KERNEL_GROUPS = (  # (group, substring), first match wins
     ("kernel B/C LayerNorm", "swin_fwd_ln"),
     ("kernel G/H attention", "attention_kernel"),
     ("kernel H GEMMs", "gemm_kernel"),
-    ("kernel E/F/I convs", "mstack_conv"),
-    ("kernel K weight grads", "mconv_wgrad"),
-    ("kernel F weight grads", "mstack_wgrad"),
-    ("kernel E/F statistics", "mstack_"),
+    ("merger convs, tensor cores (E, F)", "mstack_tc_conv"),
+    ("merger convs, CUDA cores (I, J)", "mstack_conv"),
+    ("merger weight grads, tensor cores (F, K)", "wgrad_mma"),
+    ("merger weight grads, tensor cores (F, K)", "wgrad_reduce"),
+    ("merger weight grads, CUDA cores (K f32)", "mstack_wgrad"),
+    ("merger statistics, BatchNorm passes, reduces (E, F)", "mstack_"),
     ("host-to-device copy", "Memcpy HtoD"),
     ("device-to-host copy", "Memcpy DtoH"),
     ("cuDNN convolutions", "conv"),
@@ -422,10 +434,40 @@ KERNEL_GROUPS = (  # (group, substring), first match wins
 )
 
 
-def profile_call(torch, fn):
-    """Device time by kernel group over one call of ``fn`` (which ends in a
-    synchronize) and the busy share (device time / wall time).  Returns
-    None if the profiler recorded no device event."""
+# one merger-stack call (kernel E, or kernel F) by launch group, first
+# match wins; the wrapper's own torch ops (weight packing, casts) are
+# "other".  "mstack_reduce" groups a tree whose F sums its weight and
+# bias gradients with one CUDA-core reduce (``--merger-stack`` run on a
+# parent tree, for a before-and-after in one call).
+MERGER_GROUPS = (
+    ("weight-grad reduces", "wgrad_reduce"),
+    ("weight-grad partials", "wgrad"),
+    ("BatchNorm sums/finalize/apply", "mstack_bn_"),
+    ("bias reduces", "bias_sum"),
+    ("bias reduces", "sum1"),
+    ("weight-grad and bias reduces", "mstack_reduce"),
+    ("statistics", "stats"),
+    ("convs", "conv"),
+)
+
+
+# FLOPs a voxel of the merger stack's six convs: their own (35,478 for
+# the forward, the same for the input gradients and for the weight
+# gradients) and the padded work the tensor-core bodies run
+# (csrc/merger_mma.cuh): E's 16-channel groups (layer 4: one per source)
+# and n padded to 8 or 16; F's input gradients (layer 4: n 40, layer 5:
+# the 27 taps in a depth of 32) and weight gradients (c_in to 16 or 48,
+# c_out to 16 or 8)
+MERGER_FLOP = 35478.0
+MERGER_PADDED_FLOP = {("E", "convs"): 117504.0, ("F", "convs"): 90880.0,
+                      ("F", "weight-grad partials"): 103680.0}
+
+
+def profile_call(torch, fn, by=None):
+    """Device time by kernel group (``by``, default KERNEL_GROUPS) over
+    one call of ``fn`` (which ends in a synchronize) and the busy share
+    (device time / wall time).  Returns None if the profiler recorded no
+    device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -434,20 +476,24 @@ def profile_call(torch, fn):
         t0 = time.perf_counter()
         fn()
         wall = (time.perf_counter() - t0) * 1e3
-    groups = {}
+    groups, kernels = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name
-        group = next((g for g, sub in KERNEL_GROUPS
+        group = next((g for g, sub in by or KERNEL_GROUPS
                       if sub.lower() in name.lower()),
                      "other (elementwise, norms, copies)")
-        groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
+        ms = e.time_range.elapsed_us() / 1e3
+        groups[group] = groups.get(group, 0.0) + ms
+        kernels[name] = kernels.get(name, 0.0) + ms
     if not groups:
         return None
     device = sum(groups.values())
     return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
-            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "kernels_ms": dict(sorted(kernels.items(),
+                                      key=lambda kv: -kv[1])[:12])}
 
 
 class _TimedPredictor:
@@ -497,6 +543,58 @@ def swin_calls(cfg):
     layout, a shifted block's kernels reading its windows through the
     roll's map."""
     return sum(cfg.NETWORK.SWIN_DEPTHS)
+
+
+def profile_step(torch, st, step, images, volumes, dev, card):
+    """Device time of one training step by kernel group (profiler), after
+    two warm-up steps, on the card's copies of ``images`` and
+    ``volumes``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    img, vol = torch.from_numpy(images).to(dev), torch.from_numpy(volumes).to(
+        dev)
+    for _ in range(2):
+        step(st, img, vol, gen)
+    torch.cuda.synchronize()
+    prof = profile_call(torch, lambda: (step(st, img, vol, gen),
+                                        torch.cuda.synchronize()))
+    tag = f"train step batch {images.shape[0]}, {images.shape[1]} view(s)"
+    if prof is None:
+        log(f"{tag}: profiler recorded no device event; not measured")
+    else:
+        log(f"{tag}, profiler over one step: wall {prof['wall_ms']:.3f} ms, "
+            f"device {prof['device_ms']:.3f} ms, busy share "
+            f"{prof['busy_share']:.3f}; " + ", ".join(
+                f"{k} {v:.3f}" for k, v in prof["groups_ms"].items())
+            + f"; on {card}")
+    return prof
+
+
+def merger_stack_phase(torch, dev, card, report):
+    """``--merger-stack``: phase 9 (kernels E and F against the plain stack
+    at N = 32 and 48, their repeat and launch-group breakdown), then the
+    device time of one kernel-path training step at batch 32 / 1 view and
+    at batch 16 / 3 views (profiler, default config, full width)."""
+    from swinvox_tpu_torch.config import default_config
+    from swinvox_tpu_torch.ops import pallas_merger_stack as ms
+    from swinvox_tpu_torch.train.state import create_train_state
+    from swinvox_tpu_torch.train.steps import make_train_step
+
+    check_merger_stack(torch, ms, dev, report,
+                       ((BATCH, True), (TRAIN3[0] * TRAIN3[1], True)))
+    cfg = default_config()
+    cfg.NETWORK.INIT_SCHEME = "standard"
+    st, opts = create_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                  device=dev)
+    step = make_train_step(st.model, opts)
+    rng = np.random.default_rng(SEED)
+    steps = {}
+    for batch, views in ((BATCH, 1), TRAIN3):
+        img = rng.standard_normal((batch, views, 224, 224, 3)).astype(
+            np.float32)
+        vol = (rng.random((batch, 32, 32, 32)) < 0.3).astype(np.uint8)
+        steps[f"{batch}x{views}"] = profile_step(torch, st, step, img, vol,
+                                                 dev, card)
+    report["train_step_profiles"] = steps
 
 
 def train_launches(cfg, batch, views):
@@ -903,7 +1001,7 @@ def check_merger_stack(torch, ms, dev, report, sizes):
         # weights in and their gradients out
         entry = {"fwd_ms": fk, "fwd_plain_ms": fp, "errors": errs}
         entry["fwd_bound_ms"], entry["fwd_bound_by"] = bound(
-            vox * 35478.0, vox * 20.0 + 17739 * 4)
+            vox * MERGER_FLOP, vox * 20.0 + 17739 * 4)
         if backward:
             xp = x.clone().requires_grad_(True)
             psp = [q.clone().requires_grad_(True) for q in params]
@@ -914,15 +1012,90 @@ def check_merger_stack(torch, ms, dev, report, sizes):
                 time_grad(torch, yk, [xk] + psk, dy), iters=3)
             entry.update({"bwd_ms": bk, "bwd_plain_ms": bp})
             entry["bwd_bound_ms"], entry["bwd_bound_by"] = bound(
-                vox * 2 * 35478.0, vox * 38.0 + 17739 * 8)
+                vox * 2 * MERGER_FLOP, vox * 38.0 + 17739 * 8)
             log(f"  E {fk:.4f} ms (plain {fp:.4f}), F {bk:.4f} ms (plain "
                 f"{bp:.4f})")
             del xp, psp, yp
         else:
             log(f"  E {fk:.4f} ms (plain {fp:.4f})")
+        entry.update(merger_repeat_and_profile(torch, ms, x, params, dy,
+                                               backward))
         out[n] = entry
         del f32, g32, pl, gpl, gkn, xk, psk, yk
     report["merger_stack"] = {"worst": worst, "by_volumes": out}
+
+
+def short_name(kernel):
+    """A profiler kernel name without its namespace and argument list."""
+    name = kernel.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0]
+
+
+def merger_repeat_and_profile(torch, ms, x, params, dy, backward):
+    """Kernel E (and F) called twice on the same inputs must give the same
+    bits (fixed-order sums, no atomics); then the device time of one E
+    call (and one F call) by launch group (MERGER_GROUPS)."""
+    ks, bs, gs, bts = params[:6], params[6:12], params[12:17], params[17:22]
+
+    def fwd():
+        return ms.merger_stack_forward(x, ks, bs, gs, bts, 0.2, 1e-5)
+
+    def defined(e):  # the stats rows layer 5 has: its mean and variance
+        raw5, stats, raws = e
+        return raw5, stats[:5], stats[5, :2, :1], raws
+
+    e1, e2 = fwd(), fwd()
+    outs = [(f"E output {i}", a, b)
+            for i, (a, b) in enumerate(zip(defined(e1), defined(e2)))]
+    if backward:
+        def bwd():
+            dx, dks, db, dg, dbt = ms.merger_stack_backward(
+                dy, x, e1[2], e1[1], ks, gs, 0.2, 1e-5)
+            return [dx, *dks, db, dg, dbt]
+
+        f1, f2 = bwd(), bwd()
+        outs += [(f"F output {i}", a, b) for i, (a, b) in enumerate(zip(f1,
+                                                                        f2))]
+    torch.cuda.synchronize()
+    differ = [w for w, a, b in outs if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"merger stack N={x.shape[0]}: two calls on the "
+                             f"same inputs differ in {differ}")
+    res = {"repeat_bit_equal": True}
+    for what, fn in (("E", fwd), ("F", bwd if backward else None)):
+        if fn is None:
+            continue
+        fn()
+        prof = profile_call(torch, lambda: (fn(), torch.cuda.synchronize()),
+                            MERGER_GROUPS)
+        res[f"profile_{what}"] = prof
+        if prof is not None:
+            vox = x.shape[0] * 32**3
+            rates = {grp: {"ms": prof["groups_ms"][grp],
+                           "own_tflops": vox * MERGER_FLOP
+                           / prof["groups_ms"][grp] / 1e9,
+                           "padded_tflops": vox * pad
+                           / prof["groups_ms"][grp] / 1e9}
+                     for (w, grp), pad in MERGER_PADDED_FLOP.items()
+                     if w == what and grp in prof["groups_ms"]}
+            res[f"tflops_{what}"] = rates
+            log(f"  {what} N={x.shape[0]}: " + "; ".join(
+                f"{grp} {r['own_tflops']:.1f} TFLOP/s of their own FLOPs, "
+                f"{r['padded_tflops']:.1f} of the padded"
+                for grp, r in rates.items()))
+        if prof is None:
+            log(f"  {what} N={x.shape[0]}: profiler recorded no device "
+                "event; breakdown not measured")
+        else:
+            log(f"  {what} N={x.shape[0]} one call by launch group: device "
+                f"{prof['device_ms']:.4f} ms; " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in prof["groups_ms"].items()))
+            log("    by kernel: " + ", ".join(
+                f"{short_name(k)} {v:.4f}"
+                for k, v in prof["kernels_ms"].items()))
+    log(f"  N={x.shape[0]}: two calls on the same inputs are bit-equal "
+        f"({len(outs)} outputs)")
+    return res
 
 
 class Recorder:
@@ -946,8 +1119,11 @@ class Recorder:
             return a.detach().clone() if self.torch.is_tensor(a) else a
 
         def keep(rec, key):
+            # a parameter is the same leaf at every step, so its hook fires
+            # again in later steps' backward: a call keeps its own, the
+            # first
             def hook(grad):
-                rec["grads"][key] = grad.detach().clone()
+                rec["grads"].setdefault(key, grad.detach().clone())
             return hook
 
         def wrapped(*args, **kw):
@@ -1761,6 +1937,27 @@ def hold_train_calls(torch, bc, d1, kept, tag):
             "failed": failed}
 
 
+def hold_run_merger_calls(torch, ms, calls, tag):
+    """Every merger-stack call (kernels E and F) recorded in a training
+    run, each held against the plain stack on its own inputs and output
+    gradient by phase 9's rule (``hold_step_merger``)."""
+    failed = []
+    worst = {"fwd_max_abs": 0.0, "bwd_rel_l2": 0.0, "dx_max_abs": 0.0}
+    for i, rec in enumerate(calls):
+        try:
+            res = hold_step_merger(torch, ms, [rec], f"{tag} call {i}")
+        except AssertionError as e:
+            failed.append(str(e))
+            continue
+        for k in worst:
+            worst[k] = max(worst[k], res["worst"][k])
+    if calls:
+        log(f"  {tag}: {len(calls)} merger-stack calls held against the "
+            f"plain stack on their own inputs, worst {worst}; "
+            f"{len(failed)} failed")
+    return {"calls": len(calls), "worst": worst, "failed": failed}
+
+
 def want_train_launches(cfg, batch, flags, steps, val_forwards):
     """Launches of a ``train_net`` run under ``cfg`` (3 views): per step
     the train kernels (C 12, D 12 at Swin-T depths, no A; the merger's E
@@ -1900,8 +2097,10 @@ def train_phase(torch, dev, card, counters, report):
     from swinvox_tpu_torch.cli import runner
     from swinvox_tpu_torch.config import default_config
     from swinvox_tpu_torch.data.synthetic import generate_dataset
+    from swinvox_tpu_torch.models import merger as merger_mod
     from swinvox_tpu_torch.ops import pallas_band_conv as bc
     from swinvox_tpu_torch.ops import pallas_down1 as d1
+    from swinvox_tpu_torch.ops import pallas_merger_stack as ms
     from swinvox_tpu_torch.train import checkpoint as ckpt_mod
     from swinvox_tpu_torch.train import trainer
 
@@ -1977,6 +2176,8 @@ def train_phase(torch, dev, card, counters, report):
                             ("K", bc, "merger_conv_wgrad"),
                             ("L", d1, "down1_backward"))} \
                     if keep_calls else {}
+                stack_calls = stack.enter_context(Recorder(
+                    torch, merger_mod, "merger_stack")) if keep_calls else None
                 if runner.main(argv) != 0:
                     raise AssertionError(f"runner {name} failed")
                 torch.cuda.synchronize()
@@ -2006,7 +2207,10 @@ def train_phase(torch, dev, card, counters, report):
                     torch, bc, d1, {k: c.calls for k, c in kept.items()},
                     name)
                 failed.extend(res["held_calls"]["failed"])
-                del kept
+                res["held_merger_stack"] = hold_run_merger_calls(
+                    torch, ms, stack_calls.calls, name)
+                failed.extend(res["held_merger_stack"]["failed"])
+                del kept, stack_calls
             log(f"runner (train) {name}: batch {batch}, {len(spans)} steps, "
                 f"step wall median {res['step_ms_median_after_first']:.3f} ms"
                 f" (after the first), epoch train s "
@@ -2249,9 +2453,9 @@ def main(argv) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
-    if argv not in ([], ["--eval-only"]):
-        print(f"usage: chip_smoke.py [--eval-only], not {argv}",
-              file=sys.stderr)
+    if argv not in ([], ["--eval-only"], ["--merger-stack"]):
+        print(f"usage: chip_smoke.py [--eval-only | --merger-stack], not "
+              f"{argv}", file=sys.stderr)
         return 2
     eval_only = argv == ["--eval-only"]
     if not torch.cuda.is_available():
@@ -2299,12 +2503,16 @@ def main(argv) -> int:
     log("\n".join(ln for ln in ptxas.splitlines()
                   if "registers" in ln or "spill" in ln))
 
-    if eval_only:
-        eval_phase(torch, dev, card, eval_counters(rw, blk, fm, mi, wa),
-                   report)
+    if eval_only or argv == ["--merger-stack"]:
+        if eval_only:
+            eval_phase(torch, dev, card, eval_counters(rw, blk, fm, mi, wa),
+                       report)
+        else:
+            merger_stack_phase(torch, dev, card, report)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / "chip_smoke_eval.json").write_text(
+        name = "eval" if eval_only else "merger"
+        (out_dir / f"chip_smoke_{name}.json").write_text(
             json.dumps(report, indent=1))
         return 0
 
@@ -2452,7 +2660,7 @@ def main(argv) -> int:
     # ---- 8./9. training kernels against their plain versions -------------
     check_swin_train(torch, blk, shifted_window_mask, dev, report)
     n1, n3 = BATCH, TRAIN3[0] * TRAIN3[1]
-    check_merger_stack(torch, ms, dev, report, ((n1, False), (n3, True)))
+    check_merger_stack(torch, ms, dev, report, ((n1, True), (n3, True)))
     report["rewindow"]["library_ms"] = library_rewindow(torch, rw, dev)
 
     # ---- 10. the training step, batch 32, 1 view, three paths -------------
@@ -2605,6 +2813,9 @@ def main(argv) -> int:
     train3, res3 = compare(f"train step B={b3} {v3} views", img3, vol3,
                            want3)
     del res3
+    st, _, step = paths["kernels"]
+    train3["profile_one_step"] = profile_step(torch, st, step, img3, vol3,
+                                              dev, card)
     report["train_3view"] = train3
     for name in ("bf16 plain", "f32 plain"):
         del paths[name]

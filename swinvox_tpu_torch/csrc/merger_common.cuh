@@ -1,28 +1,25 @@
-// Device code shared by the merger's conv kernels: the direct 3x3x3 conv
-// over 32^3 channels-last volumes (kernels E, F and I in merger_stack.cu,
-// kernel J in merger_conv.cu) and its CUDA-core weight-gradient body
-// (kernel F, and kernel K's f32 route; K's bf16 route runs on the tensor
-// cores, mconv_wgrad_mma_kernel in merger_conv.cu).  Included by
-// merger_stack.cu and merger_conv.cu; everything is in an anonymous
-// namespace, so each includes its own copy.
+// Device code shared by the merger's CUDA-core conv kernels: the direct
+// 3x3x3 conv over 32^3 channels-last volumes (kernel I in merger_stack.cu,
+// kernel J in merger_conv.cu) and the weight-gradient body of kernel K's
+// f32 route.  Kernels E and F and K's bf16 route run on the tensor cores
+// (merger_mma.cuh).  Included by merger_stack.cu and merger_conv.cu;
+// everything is in an anonymous namespace, so each includes its own copy.
 //
 // The conv: one block per (volume, d plane, half plane of 16 rows), 256
 // threads, two output voxels per thread.  The block loads the 3 x 18 x 34
-// input halo of each source into shared memory as f32 (normalizing on
-// read where the source is a BatchNorm layer's raw output: its affine,
-// LeakyReLU, bf16 rounding), loads the 27 x C_in x C_out weights, and
-// accumulates every output channel with f32 FMAs.  A source holds CIN
-// channels at a channel stride of `stride` (0: CIN), so a 36-channel
-// input is four 9-channel sources at offsets 0, 9, 18, 27.
+// input halo of each source into shared memory as f32, loads the 27 x
+// C_in x C_out weights, and accumulates every output channel with f32
+// FMAs.  A source holds CIN channels at a channel stride of `stride` (0:
+// CIN), so a 36-channel input is four 9-channel sources at offsets 0, 9,
+// 18, 27.
 //
 // The weight gradient: one block per (volume, 4 d planes, half plane);
-// thread (tap, ci) sums a[v + tap][ci] * dr[v][co] over the block's
+// thread (tap, ci) sums x[v + tap][ci] * dy[v][co] over the block's
 // voxels into a per-block partial; mstack_reduce_kernel then sums the
 // partials in a fixed order (no atomics: the same inputs give the same
 // bits on every run).  What bounds it on an H100: f32 FMAs with one
-// shared load of dr each (shared-load issue, not the card), and one
-// thread per output summing every partial serially in the reduce.  Kernel
-// F keeps it for now; moving F onto K's tensor-core body is queued.
+// shared load of dy each (shared-load issue, not the card), and one
+// thread per output summing every partial serially in the reduce.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,12 +39,9 @@ constexpr int TILE = TD * TR * TW;   // positions in a halo tile
 constexpr int THREADS = 256;
 constexpr int WG_PLANES = 4;         // d planes per weight-grad block
 
-// FWD (E): + bias, bf16 out, statistics partials; ADJ_* (F): the input
-// gradient with the flipped, channel-swapped kernel into f32 or bf16;
 // INFER (I): folded BatchNorm and LeakyReLU; CONV (J): the plain conv,
 // weights as given, rounded once to the element type
-enum Mode { FWD = 0, ADJ_INIT = 1, ADJ_ACC = 2, ADJ_DX = 3, INFER = 4,
-            CONV = 5 };
+enum Mode { INFER = 4, CONV = 5 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -63,11 +57,9 @@ __device__ __forceinline__ void store(bf16* p, float v) {
 }
 
 // Loads the halo tile of one CIN-channel source around plane d, rows
-// [h0 - 1, h0 + TH + 1), as f32; `aff` (null: raw) holds the previous
-// layer's normalize scale [9] and shift [9]; padding stays 0.
+// [h0 - 1, h0 + TH + 1), as f32; padding stays 0.
 template <int CIN, typename T>
-__device__ void load_tile(const T* __restrict__ src, int stride,
-                          const float* __restrict__ aff, float leaky, int n,
+__device__ void load_tile(const T* __restrict__ src, int stride, int n,
                           int d, int h0, float* tile) {
   for (int i = threadIdx.x; i < TILE * CIN; i += blockDim.x) {
     const int ci = i % CIN, p = i / CIN;
@@ -77,11 +69,6 @@ __device__ void load_tile(const T* __restrict__ src, int stride,
     if (gd >= 0 && gd < S && gh >= 0 && gh < S && gw >= 0 && gw < S) {
       const size_t vox = (((size_t)n * S + gd) * S + gh) * S + gw;
       v = to_f32(src[vox * stride + ci]);
-      if (aff) {
-        float z = v * aff[ci] + aff[9 + ci];
-        z = z > 0.f ? z : z * leaky;
-        v = __bfloat162float(__float2bfloat16(z));
-      }
     }
     tile[i] = v;
   }
@@ -90,27 +77,19 @@ __device__ void load_tile(const T* __restrict__ src, int stride,
 template <typename T>
 struct ConvArgsT {
   const T* src[4];        // sources, CIN channels each, channels-last
-  const float* aff[4];    // their normalize affine, or null
   int stride;             // channel stride of the sources (0: CIN)
   const T* w;             // this layer's DHWIO kernel [27][Cin][Cout]
-  const float* bias;      // FWD: [COUT]
   const float* fold;      // INFER: folded BatchNorm scale [9], shift [9]
-  void* dst[4];           // FWD: bf16 [V][COUT]; ADJ_*: f32 [V][9] x COUT/9;
-                          // ADJ_DX: bf16 [V][9]; INFER: bf16 [V][9], or
-                          // f32 [V] for the 1-channel last layer; CONV: T
-                          // [V][COUT]
-  float* partial;         // FWD: [blocks][2][COUT] sums of r and r^2
-  float leaky;
+  void* dst;              // INFER: bf16 [V][9], or f32 [V] for the
+                          // 1-channel last layer; CONV: T [V][COUT]
+  float leaky;            // INFER
 };
 typedef ConvArgsT<bf16> ConvArgs;
 
-// Direct 3x3x3 conv, one block per (volume, d, half plane), two output
-// voxels per thread.  FWD: the layer's conv of NSRC sources with CIN
-// channels each into COUT channels.  INFER: the same conv followed by the
-// folded inference BatchNorm and LeakyReLU (kernel I).  CONV: the same
-// conv, no bias (kernel J).  ADJ_*: the input gradient of a layer whose
-// forward maps COUT channels to CIN: the conv of dr (CIN channels) with
-// the flipped, channel-swapped kernel into COUT channels.
+// Direct 3x3x3 conv of NSRC sources with CIN channels each into COUT
+// channels, one block per (volume, d, half plane), two output voxels per
+// thread.  INFER: followed by the folded inference BatchNorm and
+// LeakyReLU (kernel I).  CONV: the conv alone, no bias (kernel J).
 template <int CIN, int NSRC, int COUT, int MODE, typename T>
 __global__ void __launch_bounds__(THREADS)
     mstack_conv_kernel(ConvArgsT<T> a) {
@@ -123,14 +102,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const int stride = a.stride ? a.stride : CIN;
 
-  for (int i = tid; i < 27 * CT * COUT; i += THREADS) {
-    if (MODE == FWD || MODE == INFER || MODE == CONV) {
-      ws[i] = to_f32(a.w[i]);
-    } else {  // forward kernel [27][COUT][CT] -> flipped, swapped
-      const int t = i / (CT * COUT), ci = (i / COUT) % CT, co = i % COUT;
-      ws[i] = to_f32(a.w[((26 - t) * COUT + co) * CT + ci]);
-    }
-  }
+  for (int i = tid; i < 27 * CT * COUT; i += THREADS) ws[i] = to_f32(a.w[i]);
   const int w = tid % 32, r0 = tid / 32;  // rows r0 and r0 + 8
   float acc0[COUT], acc1[COUT];
 #pragma unroll
@@ -138,7 +110,7 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int s = 0; s < NSRC; ++s) {
     __syncthreads();
-    load_tile<CIN>(a.src[s], stride, a.aff[s], a.leaky, n, d, h0, tile);
+    load_tile<CIN>(a.src[s], stride, n, d, h0, tile);
     __syncthreads();
     for (int t = 0; t < 27; ++t) {
       const int kd = t / 9, kh = (t / 3) % 3, kw = t % 3;
@@ -160,32 +132,7 @@ __global__ void __launch_bounds__(THREADS)
 
   const size_t v0 = (((size_t)n * S + d) * S + h0 + r0) * S + w;
   const size_t v1 = v0 + 8 * S;
-  if (MODE == FWD) {
-    __shared__ float red[THREADS / 32][2 * 9];
-    bf16* dst = static_cast<bf16*>(a.dst[0]);
-    const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) {
-      const bf16 q0 = __float2bfloat16(acc0[co] + a.bias[co]);
-      const bf16 q1 = __float2bfloat16(acc1[co] + a.bias[co]);
-      dst[v0 * COUT + co] = q0;
-      dst[v1 * COUT + co] = q1;
-      const float f0 = __bfloat162float(q0), f1 = __bfloat162float(q1);
-      const float s1 = warp_sum(f0 + f1);
-      const float s2 = warp_sum(f0 * f0 + f1 * f1);
-      if (lane == 0) {
-        red[warp][co] = s1;
-        red[warp][9 + co] = s2;
-      }
-    }
-    __syncthreads();
-    if (tid < 2 * COUT) {
-      const int k = tid / COUT, co = tid % COUT;
-      float sum = 0.f;
-      for (int i = 0; i < THREADS / 32; ++i) sum += red[i][9 * k + co];
-      a.partial[((size_t)blk * 2 + k) * COUT + co] = sum;
-    }
-  } else if (MODE == INFER) {
+  if (MODE == INFER) {
 #pragma unroll
     for (int co = 0; co < COUT; ++co) {
       float z0 = acc0[co] * a.fold[co] + a.fold[9 + co];
@@ -193,32 +140,19 @@ __global__ void __launch_bounds__(THREADS)
       z0 = z0 >= 0.f ? z0 : z0 * a.leaky;
       z1 = z1 >= 0.f ? z1 : z1 * a.leaky;
       if (COUT == 1) {
-        static_cast<float*>(a.dst[0])[v0] = z0;
-        static_cast<float*>(a.dst[0])[v1] = z1;
+        static_cast<float*>(a.dst)[v0] = z0;
+        static_cast<float*>(a.dst)[v1] = z1;
       } else {
-        static_cast<bf16*>(a.dst[0])[v0 * COUT + co] = __float2bfloat16(z0);
-        static_cast<bf16*>(a.dst[0])[v1 * COUT + co] = __float2bfloat16(z1);
+        static_cast<bf16*>(a.dst)[v0 * COUT + co] = __float2bfloat16(z0);
+        static_cast<bf16*>(a.dst)[v1 * COUT + co] = __float2bfloat16(z1);
       }
     }
-  } else if (MODE == ADJ_DX || MODE == CONV) {
-    T* dst = static_cast<T*>(a.dst[0]);
+  } else {  // CONV
+    T* dst = static_cast<T*>(a.dst);
 #pragma unroll
     for (int co = 0; co < COUT; ++co) {
       store(dst + v0 * COUT + co, acc0[co]);
       store(dst + v1 * COUT + co, acc1[co]);
-    }
-  } else {
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) {
-      float* dst = static_cast<float*>(a.dst[co / 9]);
-      const int c = co % 9;
-      if (MODE == ADJ_INIT) {
-        dst[v0 * 9 + c] = acc0[co];
-        dst[v1 * 9 + c] = acc1[co];
-      } else {
-        dst[v0 * 9 + c] += acc0[co];
-        dst[v1 * 9 + c] += acc1[co];
-      }
     }
   }
 }
@@ -237,12 +171,10 @@ __global__ void mstack_reduce_kernel(const float* __restrict__ partial,
 
 template <typename T>
 struct WgradArgsT {
-  const T* src[4];      // the layer's input sources (pre-normalization)
-  const float* aff[4];  // their normalize affine, or null
+  const T* src[4];      // the layer's input sources
   int stride;           // channel stride of the sources (0: CIN)
   const T* dr;          // [V][COUT]
   float* partial;       // [blocks][27][CIN * NSRC][COUT]
-  float leaky;
 };
 typedef WgradArgsT<bf16> WgradArgs;
 
@@ -281,7 +213,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int s = 0; s < NSRC; ++s) {
       __syncthreads();
-      load_tile<CIN>(a.src[s], stride, a.aff[s], a.leaky, n, d, h0, tile);
+      load_tile<CIN>(a.src[s], stride, n, d, h0, tile);
       __syncthreads();
       if (active) {
         for (int hh = 0; hh < TH; ++hh) {

@@ -14,77 +14,85 @@
 //   layer 4 reads concat(a_0..a_3) (36 channels); layer 5 (9 -> 1) reads
 //   a_4 and its raw output is the stack's result raw5.
 //
-// Kernel E is 12 launches: per layer one direct-conv launch and one
-// single-block statistics launch.  The direct conv and the weight-grad
-// body live in merger_common.cuh (shared with kernels J and K).  A conv
-// block owns one volume's (d, 16-row half plane): it loads the 3 x 18 x
-// 34 input halo of its source into shared memory as f32, normalizing on
-// read (the previous layer's affine from the statistics buffer,
-// LeakyReLU, bf16 rounding — the activation a_l is never stored), loads
-// the 27 x C_in x C_out weights, and each thread computes all output
-// channels of two voxels with f32 FMAs (of bf16 values, so every product
-// is exact, as in a bf16 tensor-core product).  The block's per-channel
-// sum and sum of squares of its bf16 outputs go to a partial that the
-// statistics launch sums in a fixed order.  Layer 4 accumulates its four
-// 9-channel sources in registers, one halo load at a time.
+// Kernel E is 12 launches: per layer one tensor-core conv
+// (mstack_tc_conv_kernel, merger_mma.cuh) and one statistics launch.  A
+// conv block walks a run of (volume, 2 planes, 8 rows) tiles: it stages
+// the input halo in shared memory with 16 channels a position,
+// normalizing on read (the previous layer's affine from the statistics
+// buffer, LeakyReLU, bf16 rounding: the activation a_l is never stored;
+// zero padding and padded channels stay zero in activation space), and
+// runs each tap as a 16-deep slice of an implicit GEMM on mma.sync
+// m16n8k16 (bf16 in, f32 accumulate); layer 4's four sources are four
+// such slices, staged one after another.  The epilogue adds the bias,
+// rounds to bf16 and sums each channel's rounded outputs and their
+// squares into one partial a block; mstack_stats_kernel reduces the
+// partials in parallel and in a fixed order (fixed_order_reduce) into
+// the mean, variance and normalize affine.
 //
 // Kernel F walks layers 5 to 0.  For a BatchNorm layer l, with dA_l the
 // gradient arriving at a_l (f32, accumulated from every consumer):
 //   e = dA_l * leaky'(r_l * A_l + B_l),  xhat = (r_l - mean_l) * inv_l
 //   dbeta_l = S1 = sum e,  dgamma_l = S2 = sum e * xhat
 //   dr_l = gamma_l * inv_l * (e - S1 / n - xhat * S2 / n)   (bf16)
-// (a partial-sum launch, a single-block finalize, an apply launch), then
-// db_l = sum dr_l, dW_l[tap][ci][co] = sum_v a_{l-1}[v + tap][ci] dr_l[v][co]
-// (one thread per (tap, ci) over a block's voxels, per-block partials,
-// then a fixed-order reduce), and the input gradient as the same direct
-// conv with the flipped, channel-swapped kernel, added into dA_{l-1} (or,
-// for layer 4, split over its four sources; for layer 0, dx in bf16).
+// A partial-sum launch and a finalize give S1, S2 and the layer's
+// dr-on-read table; dr_l is never stored: its two consumers compute it
+// where they stage it.  dW_l[tap][ci][co] = sum_v a_{l-1}[v + tap][ci]
+// dr_l[v][co] runs on kernel K's tensor-core body
+// (merger_wgrad_mma_kernel: a_{l-1} normalized on read from r_{l-1},
+// layer 4's four sources, dr on read and db_l = sum dr_l beside it), and
+// the input gradient on E's conv body with the flipped, channel-swapped
+// kernel and dr on read, added into dA_{l-1} (layer 4: 9 -> 36, written
+// into its four sources' dA; layer 0: dx in bf16).  Layer 5's input
+// gradient (1 -> 9) gathers the 27 taps into the depth
+// (mstack_tc_conv1_kernel).  Every sum is a per-block partial reduced in a
+// fixed order: no atomics, the same bits on every launch.
 //
 // Kernel I (inference, replaces swinvox_tpu/ops/pallas_merger.py:
-// _merger_kernel) runs the same direct conv with BatchNorm folded from
-// the running statistics into a per-channel affine: each layer's
-// activation bf16(leaky(conv * s + t)) is written once (the four that
-// conv5 concatenates take 2.4 MB per volume, more than shared memory
-// holds), six launches in all, f32 logits out.  At 24 volumes it is 27.9
-// GFLOP of f32 FMAs (0.42 ms at 67 TFLOP/s) against 17 MB of input and
-// output.
+// _merger_kernel) runs the CUDA-core direct conv of merger_common.cuh
+// with BatchNorm folded from the running statistics into a per-channel
+// affine: each layer's activation bf16(leaky(conv * s + t)) is written
+// once (the four that conv5 concatenates take 2.4 MB per volume, more
+// than shared memory holds), six launches in all, f32 logits out.  At 24
+// volumes it is 27.9 GFLOP of f32 FMAs (0.42 ms at 67 TFLOP/s) against
+// 17 MB of input and output.
 //
-// Work at N = 48 volumes (3 views, batch 16): 1.57 M voxels, 35.5 k FLOP
-// per voxel over the six layers (2.2 k multiply-adds for a 9->9 layer),
-// so 56 GFLOP forward and twice that backward, in f32 FMAs against the
-// card's 67 TFLOP/s of f32 (bf16 tensor cores are not used: 9 channels
-// fill no tile), and about 0.2 GB moved each way.  So the stack is bound
-// by operations; this first version is a plain direct convolution.
+// What bounds E and F on an H100: at N = 48 volumes (3 views, batch 16)
+// the six convs are 1.57 M voxels x 35.5 k FLOP (56 GFLOP; 117.5 k FLOP
+// a voxel, 184 GFLOP, once channels are padded for the tensor cores:
+// 0.19 ms at 989 TFLOP/s), against about 0.2 GB moved each way (60 us at
+// 3.35 TB/s); F is twice the products and reads the f32 dA where it
+// computes dr.  The padding costs tensor-core work that is cheap next to
+// the staging: phase 9 of chip_smoke.py reads the convs far under the
+// tensor cores' rate, bound by staging, epilogues and the shared-memory
+// traffic of mma.sync's operands.
 //
 // The C entry points return the first nonzero cudaGetLastError() of their
 // launches.
 
-#include "merger_common.cuh"
+#include "merger_mma.cuh"
 
 namespace {
-
-constexpr int STAT_THREADS = 256;
 
 // packed bf16 DHWIO weights of the six layers
 constexpr int W_OFF[7] = {0, 2187, 4374, 6561, 8748, 17496, 17739};
 
-// Per-layer statistics from the conv blocks' partials (one block):
-// stats[0] mean, [1] biased variance, and for a BatchNorm layer [2] the
-// normalize scale and [3] shift, 9 floats each.
-__global__ void mstack_stats_kernel(const float* __restrict__ partial,
-                                 int blocks, int cout, float count,
-                                 const float* __restrict__ gamma,
-                                 const float* __restrict__ beta, float eps,
-                                 float* __restrict__ stats) {
+// Per-layer statistics from the conv blocks' partials [parts][2][cout]
+// (one block, fixed-order reduce): stats[0] mean, [1] biased variance,
+// and for a BatchNorm layer [2] the normalize scale and [3] shift, 9
+// floats each.
+__global__ void __launch_bounds__(RED_THREADS)
+    mstack_stats_kernel(const float* __restrict__ partial, int parts,
+                        int cout, float count,
+                        const float* __restrict__ gamma,
+                        const float* __restrict__ beta, float eps,
+                        float* __restrict__ stats) {
+  __shared__ float sums[18];
+  fixed_order_reduce(partial, parts, 2 * cout, 2 * cout, sums, false, 0);
+  __syncthreads();
   const int co = threadIdx.x;
   if (co >= cout) return;
-  float s1 = 0.f, s2 = 0.f;
-  for (int b = 0; b < blocks; ++b) {
-    s1 += partial[((size_t)b * 2) * cout + co];
-    s2 += partial[((size_t)b * 2 + 1) * cout + co];
-  }
-  const float mean = s1 / count;
-  const float var = s2 / count - mean * mean;
+  const float mean = sums[co] / count;
+  const float var = sums[cout + co] / count - mean * mean;
   stats[co] = mean;
   stats[9 + co] = var;
   if (gamma) {
@@ -103,8 +111,9 @@ constexpr int BN_VOX = 2048;
 __global__ void __launch_bounds__(THREADS)
     mstack_bn_sums_kernel(const bf16* __restrict__ r,
                           const float* __restrict__ da,
-                   const float* __restrict__ st, float leaky, float eps,
-                   long long nvox, float* __restrict__ partial) {
+                          const float* __restrict__ st, float leaky,
+                          float eps, long long nvox,
+                          float* __restrict__ partial) {
   __shared__ float red[THREADS / 32][18];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   float s1[9], s2[9];
@@ -138,68 +147,35 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// S1 = dbeta, S2 = dgamma (one block; also kept in s12 for the apply).
-__global__ void mstack_bn_finalize_kernel(const float* __restrict__ partial,
-                                        int blocks, float* __restrict__ dgamma,
-                                        float* __restrict__ dbeta,
-                                        float* __restrict__ s12) {
-  const int i = threadIdx.x;
-  if (i >= 18) return;
-  float sum = 0.f;
-  for (int b = 0; b < blocks; ++b) sum += partial[(size_t)b * 18 + i];
-  s12[i] = sum;
-  if (i < 9) dbeta[i] = sum;
-  else dgamma[i - 9] = sum;
-}
-
-// dr = gamma * inv * (e - S1 / n - xhat * S2 / n) in bf16, and partial
-// sums of the bf16 dr (the conv bias gradient).
-__global__ void __launch_bounds__(THREADS)
-    mstack_bn_apply_kernel(const bf16* __restrict__ r,
-                           const float* __restrict__ da,
-                    const float* __restrict__ st,
-                    const float* __restrict__ gamma,
-                    const float* __restrict__ s12, float leaky, float eps,
-                    float count, long long nvox, bf16* __restrict__ dr,
-                    float* __restrict__ partial) {
-  __shared__ float red[THREADS / 32][9];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float sb[9];
-#pragma unroll
-  for (int c = 0; c < 9; ++c) sb[c] = 0.f;
-  const long long v0 = (long long)blockIdx.x * BN_VOX;
-  for (long long v = v0 + tid; v < min(nvox, v0 + BN_VOX); v += THREADS) {
-#pragma unroll
-    for (int c = 0; c < 9; ++c) {
-      const float inv = rsqrtf(st[9 + c] + eps);
-      const float x = __bfloat162float(r[v * 9 + c]);
-      const float bn = x * st[18 + c] + st[27 + c];
-      const float e = da[v * 9 + c] * (bn > 0.f ? 1.f : leaky);
-      const float xh = (x - st[c]) * inv;
-      const float g = gamma[c] * inv *
-                      (e - s12[c] / count - xh * s12[9 + c] / count);
-      const bf16 q = __float2bfloat16(g);
-      dr[v * 9 + c] = q;
-      sb[c] += __bfloat162float(q);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 9; ++c) {
-    const float a = warp_sum(sb[c]);
-    if (lane == 0) red[warp][c] = a;
-  }
+// S1 = dbeta, S2 = dgamma (one block, fixed-order reduce), and the layer's
+// dr-on-read table (DR_TAB, merger_mma.cuh) for its two consumers.
+__global__ void __launch_bounds__(RED_THREADS)
+    mstack_bn_finalize_kernel(const float* __restrict__ partial, int parts,
+                              const float* __restrict__ st,
+                              const float* __restrict__ gamma, float eps,
+                              float count, float* __restrict__ dgamma,
+                              float* __restrict__ dbeta,
+                              float* __restrict__ tab) {
+  __shared__ float sums[18];
+  fixed_order_reduce(partial, parts, 18, 18, sums, false, 0);
   __syncthreads();
-  if (tid < 9) {
-    float sum = 0.f;
-    for (int i = 0; i < THREADS / 32; ++i) sum += red[i][tid];
-    partial[(size_t)blockIdx.x * 9 + tid] = sum;
-  }
+  const int c = threadIdx.x;
+  if (c >= 9) return;
+  dbeta[c] = sums[c];
+  dgamma[c] = sums[9 + c];
+  const float inv = rsqrtf(st[9 + c] + eps);
+  const float gi = gamma[c] * inv;
+  tab[c] = st[18 + c];
+  tab[9 + c] = st[27 + c];
+  tab[18 + c] = gi;
+  tab[27 + c] = gi * (inv * st[c] * sums[9 + c] - sums[c]) / count;
+  tab[36 + c] = -gi * inv * sums[9 + c] / count;
 }
 
 // Partial sums of a 1-channel bf16 volume (layer 5's bias gradient).
 __global__ void __launch_bounds__(THREADS)
     mstack_sum1_kernel(const bf16* __restrict__ src, long long nvox,
-                float* __restrict__ partial) {
+                       float* __restrict__ partial) {
   __shared__ float red[THREADS / 32];
   const int tid = threadIdx.x;
   float s = 0.f;
@@ -216,14 +192,41 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// A bias gradient out[i] = sum_p part[p][i], i < n (n <= 32: one block),
+// in a fixed order.
+__global__ void __launch_bounds__(RED_THREADS)
+    mstack_bias_sum_kernel(const float* __restrict__ part, int parts, int n,
+                           float* __restrict__ out) {
+  fixed_order_reduce(part, parts, n, n, out, false, 0);
+}
 
-long long fwd_partial_floats(long long n) { return n * 2 * S * 2 * 9; }
+long long max3(long long a, long long b, long long c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+long long fwd_partial_floats(long long n) {
+  return max3((long long)tc_grid<9, 1, 9, TC_FWD>(n) * 18,
+              (long long)tc_grid<9, 4, 9, TC_FWD>(n) * 18,
+              (long long)tc_grid<9, 1, 1, TC_FWD>(n) * 2);
+}
 
 long long bwd_partial_floats(long long n) {
-  const long long wg = n * 2 * (S / WG_PLANES) * 27 * 36 * 9;
+  const long long wg = max3((long long)wgrad_grid<9, 9>(n) * 27 * 81,
+                            (long long)wgrad_grid<36, 9>(n) * 27 * 324,
+                            (long long)wgrad_grid<9, 1>(n) * 27 * 9);
   const long long bn = (n * V3 + BN_VOX - 1) / BN_VOX * 18;
   return wg > bn ? wg : bn;
 }
+
+// The bias-gradient partials: one per weight-gradient block, or per
+// 2048 voxels of dr5.
+long long db_partial_floats(long long n) {
+  return max3((long long)wgrad_grid<9, 9>(n) * 9,
+              (long long)wgrad_grid<36, 9>(n) * 9,
+              (n * V3 + BN_VOX - 1) / BN_VOX);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -231,9 +234,10 @@ extern "C" long long swinvox_merger_stack_fwd_workspace(long long n) {
   return (long long)align256(sizeof(float) * fwd_partial_floats(n));
 }
 
-// x [n, 32^3, 9] bf16; w the six DHWIO kernels packed in bf16 (offsets
-// W_OFF); bias [6][9], gamma, beta [5][9] f32.  Out: raws [5][n*32^3][9]
-// bf16 (r_0..r_4), raw5 [n*32^3] bf16, stats [6][4][9] f32.
+// x [n, 32^3, 9] bf16 (16-byte aligned); w the six DHWIO kernels packed
+// in bf16 (offsets W_OFF); bias [6][9], gamma, beta [5][9] f32.  Out:
+// raws [5][n*32^3][9] bf16 (r_0..r_4), raw5 [n*32^3] bf16, stats [6][4][9]
+// f32.
 extern "C" int swinvox_merger_stack_fwd(
     const void* x, const void* w, const void* bias, const void* gamma,
     const void* beta, void* raws, void* raw5, void* stats, void* work,
@@ -243,6 +247,8 @@ extern "C" int swinvox_merger_stack_fwd(
   if (n == 0) return 0;
   if (work_bytes < swinvox_merger_stack_fwd_workspace(n))
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(raws) || !aligned16(raw5))
+    return (int)cudaErrorMisalignedAddress;
   const bf16* W = static_cast<const bf16*>(w);
   const float* bs = static_cast<const float*>(bias);
   const float* gm = static_cast<const float*>(gamma);
@@ -251,62 +257,60 @@ extern "C" int swinvox_merger_stack_fwd(
   float* st = static_cast<float*>(stats);
   float* part = static_cast<float*>(work);
   const size_t nv9 = (size_t)n * V3 * 9;
-  const int blocks = (int)(n * 2 * S);
   const float count = (float)(n * V3);
   int err;
-  auto finish = [&](int layer, int cout) {
-    mstack_stats_kernel<<<1, STAT_THREADS, 0, s>>>(
-        part, blocks, cout, count, layer < 5 ? gm + layer * 9 : nullptr,
+  auto finish = [&](int layer, int cout, int parts) {
+    mstack_stats_kernel<<<1, RED_THREADS, 0, s>>>(
+        part, parts, cout, count, layer < 5 ? gm + layer * 9 : nullptr,
         layer < 5 ? bt + layer * 9 : nullptr, eps, st + layer * 36);
     return (int)cudaGetLastError();
   };
-  for (int l = 0; l < 4; ++l) {
-    ConvArgs a{};
-    a.src[0] = l == 0 ? static_cast<const bf16*>(x) : R + (l - 1) * nv9;
-    a.aff[0] = l == 0 ? nullptr : st + (l - 1) * 36 + 18;
-    a.w = W + W_OFF[l];
-    a.bias = bs + l * 9;
-    a.dst[0] = R + l * nv9;
+  auto args = [&](int layer) {
+    TcArgs a{};
+    a.w = W + W_OFF[layer];
+    a.bias = bs + layer * 9;
     a.partial = part;
     a.leaky = leaky;
-    if ((err = conv<9, 1, 9, FWD>(a, (int)n, s))) return err;
-    if ((err = finish(l, 9))) return err;
+    return a;
+  };
+  for (int l = 0; l < 4; ++l) {
+    TcArgs a = args(l);
+    a.src.p[0] = l == 0 ? static_cast<const bf16*>(x) : R + (l - 1) * nv9;
+    a.src.aff[0] = l == 0 ? nullptr : st + (l - 1) * 36 + 18;
+    a.dst[0] = R + l * nv9;
+    if ((err = tc_conv<9, 1, 9, TC_FWD>(a, n, s))) return err;
+    if ((err = finish(l, 9, tc_grid<9, 1, 9, TC_FWD>(n)))) return err;
   }
   {
-    ConvArgs a{};
+    TcArgs a = args(4);
     for (int k = 0; k < 4; ++k) {
-      a.src[k] = R + k * nv9;
-      a.aff[k] = st + k * 36 + 18;
+      a.src.p[k] = R + k * nv9;
+      a.src.aff[k] = st + k * 36 + 18;
     }
-    a.w = W + W_OFF[4];
-    a.bias = bs + 4 * 9;
     a.dst[0] = R + 4 * nv9;
-    a.partial = part;
-    a.leaky = leaky;
-    if ((err = conv<9, 4, 9, FWD>(a, (int)n, s))) return err;
-    if ((err = finish(4, 9))) return err;
+    if ((err = tc_conv<9, 4, 9, TC_FWD>(a, n, s))) return err;
+    if ((err = finish(4, 9, tc_grid<9, 4, 9, TC_FWD>(n)))) return err;
   }
-  ConvArgs a{};
-  a.src[0] = R + 4 * nv9;
-  a.aff[0] = st + 4 * 36 + 18;
-  a.w = W + W_OFF[5];
-  a.bias = bs + 5 * 9;
+  TcArgs a = args(5);
+  a.src.p[0] = R + 4 * nv9;
+  a.src.aff[0] = st + 4 * 36 + 18;
   a.dst[0] = raw5;
-  a.partial = part;
-  a.leaky = leaky;
-  if ((err = conv<9, 1, 1, FWD>(a, (int)n, s))) return err;
-  return finish(5, 1);
+  if ((err = tc_conv<9, 1, 1, TC_FWD>(a, n, s))) return err;
+  return finish(5, 1, tc_grid<9, 1, 1, TC_FWD>(n));
 }
 
 extern "C" long long swinvox_merger_stack_bwd_workspace(long long n) {
   const size_t nv9 = (size_t)n * V3 * 9;
-  return (long long)(4 * align256(nv9 * 4) + align256(nv9 * 2) +
-                     align256(sizeof(float) * bwd_partial_floats(n)) + 256);
+  return (long long)(5 * align256(nv9 * 4) +
+                     align256(sizeof(float) * bwd_partial_floats(n)) +
+                     align256(sizeof(float) * db_partial_floats(n)) +
+                     align256(sizeof(float) * DR_TAB));
 }
 
-// x, raws, stats, w as above, gamma [5][9]; d_raw5 [n*32^3] bf16.  Out:
-// dx [n*32^3][9] bf16; dw packed like w in f32; dbias [6][9] (layer 5:
-// [5][0]), dgamma, dbeta [5][9] f32.
+// x, raws, stats, w as above, gamma [5][9]; d_raw5 [n*32^3] bf16; x,
+// raws, d_raw5 and dx 16-byte aligned.  Out: dx [n*32^3][9] bf16; dw
+// packed like w in f32; dbias [6][9] (layer 5: [5][0]), dgamma, dbeta
+// [5][9] f32.
 extern "C" int swinvox_merger_stack_bwd(
     const void* x, const void* raws, const void* stats, const void* w,
     const void* gamma, const void* d_raw5, void* dx, void* dw, void* dbias,
@@ -316,6 +320,9 @@ extern "C" int swinvox_merger_stack_bwd(
   if (n == 0) return 0;
   if (work_bytes < swinvox_merger_stack_bwd_workspace(n))
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(raws) || !aligned16(d_raw5) ||
+      !aligned16(dx) || !aligned16(work))
+    return (int)cudaErrorMisalignedAddress;
   const bf16* W = static_cast<const bf16*>(w);
   const bf16* R = static_cast<const bf16*>(raws);
   const float* st = static_cast<const float*>(stats);
@@ -326,15 +333,18 @@ extern "C" int swinvox_merger_stack_bwd(
   const long long nvox = n * V3;
   const float count = (float)nvox;
   unsigned char* wb = static_cast<unsigned char*>(work);
-  float* dA[4];
-  for (int k = 0; k < 4; ++k) dA[k] = reinterpret_cast<float*>(
-      wb + k * align256(nv9 * 4));
-  bf16* dr = reinterpret_cast<bf16*>(wb + 4 * align256(nv9 * 4));
-  float* part = reinterpret_cast<float*>(wb + 4 * align256(nv9 * 4) +
-                                         align256(nv9 * 2));
-  float* s12 = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(part) +
-      align256(sizeof(float) * bwd_partial_floats(n)));
+  // dA_0..dA_3, then dA_4 (layer 4's adjoint writes the first four while
+  // it reads dA_4)
+  float* dA[5];
+  for (int k = 0; k < 5; ++k) {
+    dA[k] = reinterpret_cast<float*>(wb);
+    wb += align256(nv9 * 4);
+  }
+  float* part = reinterpret_cast<float*>(wb);
+  wb += align256(sizeof(float) * bwd_partial_floats(n));
+  float* dbpart = reinterpret_cast<float*>(wb);
+  wb += align256(sizeof(float) * db_partial_floats(n));
+  float* tab = reinterpret_cast<float*>(wb);
   const int bn_blocks = (int)((nvox + BN_VOX - 1) / BN_VOX);
   int err;
   if ((err = (int)cudaMemsetAsync(DB, 0, 6 * 9 * sizeof(float), s)))
@@ -342,75 +352,76 @@ extern "C" int swinvox_merger_stack_bwd(
 
   // ---- layer 5: dr5 is given
   const bf16* dr5 = static_cast<const bf16*>(d_raw5);
-  mstack_sum1_kernel<<<bn_blocks, THREADS, 0, s>>>(dr5, nvox, part);
+  mstack_sum1_kernel<<<bn_blocks, THREADS, 0, s>>>(dr5, nvox, dbpart);
   if ((err = (int)cudaGetLastError())) return err;
-  mstack_reduce_kernel<<<1, 32, 0, s>>>(part, bn_blocks, 1, DB + 5 * 9);
+  mstack_bias_sum_kernel<<<1, RED_THREADS, 0, s>>>(dbpart, bn_blocks, 1,
+                                                   DB + 5 * 9);
   if ((err = (int)cudaGetLastError())) return err;
   {
-    WgradArgs g{};
-    g.src[0] = R + 4 * nv9;
+    Src g{};
+    g.p[0] = R + 4 * nv9;
     g.aff[0] = st + 4 * 36 + 18;
-    g.dr = dr5;
-    g.partial = part;
-    g.leaky = leaky;
-    if ((err = wgrad<9, 1, 1>(g, (int)n, DW + W_OFF[5], s))) return err;
-    ConvArgs a{};
-    a.src[0] = dr5;
-    a.w = W + W_OFF[5];
-    a.dst[0] = dA[0];  // dA_4 (dA_0..3 are written after it is read)
-    if ((err = conv<1, 1, 9, ADJ_INIT>(a, (int)n, s))) return err;
+    if ((err = wgrad_mma<9, 1, 1, false>(g, dr5, Src{}, n, leaky,
+                                         DW + W_OFF[5], part, nullptr, s)))
+      return err;
+    if ((err = tc_conv1(dr5, W + W_OFF[5], dA[4], n, s))) return err;
   }
 
   for (int l = 4; l >= 0; --l) {
-    // ---- BatchNorm l backward: dA_l -> dr_l (bf16), dgamma, dbeta, db
-    const float* da = l == 4 ? dA[0] : dA[l];
+    // ---- BatchNorm l backward: dgamma, dbeta and the dr-on-read table;
+    // dr_l = f(r_l, dA_l) is computed where it is read
+    const float* da = dA[l];
     const bf16* r = R + l * nv9;
     const float* sl = st + l * 36;
-    mstack_bn_sums_kernel<<<bn_blocks, THREADS, 0, s>>>(r, da, sl, leaky, eps,
-                                                        nvox,
-                                                 part);
+    mstack_bn_sums_kernel<<<bn_blocks, THREADS, 0, s>>>(r, da, sl, leaky,
+                                                        eps, nvox, part);
     if ((err = (int)cudaGetLastError())) return err;
-    mstack_bn_finalize_kernel<<<1, 32, 0, s>>>(
-        part, bn_blocks, static_cast<float*>(dgamma) + l * 9,
-        static_cast<float*>(dbeta) + l * 9, s12);
-    if ((err = (int)cudaGetLastError())) return err;
-    mstack_bn_apply_kernel<<<bn_blocks, THREADS, 0, s>>>(r, da, sl, gm + l * 9,
-                                                         s12,
-                                                  leaky, eps, count, nvox, dr,
-                                                  part);
-    if ((err = (int)cudaGetLastError())) return err;
-    mstack_reduce_kernel<<<1, 32, 0, s>>>(part, bn_blocks, 9, DB + l * 9);
+    mstack_bn_finalize_kernel<<<1, RED_THREADS, 0, s>>>(
+        part, bn_blocks, sl, gm + l * 9, eps, count,
+        static_cast<float*>(dgamma) + l * 9,
+        static_cast<float*>(dbeta) + l * 9, tab);
     if ((err = (int)cudaGetLastError())) return err;
 
-    // ---- conv l backward: dW_l, then the input gradient
-    WgradArgs g{};
-    g.dr = dr;
-    g.partial = part;
-    g.leaky = leaky;
-    ConvArgs a{};
-    a.src[0] = dr;
+    // ---- conv l backward: dW_l and db_l, then the input gradient
+    Src d{};  // dr_l on read
+    d.p[0] = r;
+    d.da = da;
+    d.aff[0] = tab;
+    Src g{};
+    TcArgs a{};
+    a.src = d;
     a.w = W + W_OFF[l];
+    a.leaky = leaky;
+    int grid;
     if (l == 4) {
       for (int k = 0; k < 4; ++k) {
-        g.src[k] = R + k * nv9;
+        g.p[k] = R + k * nv9;
         g.aff[k] = st + k * 36 + 18;
         a.dst[k] = dA[k];
       }
-      if ((err = wgrad<9, 4, 9>(g, (int)n, DW + W_OFF[4], s))) return err;
-      if ((err = conv<9, 1, 36, ADJ_INIT>(a, (int)n, s))) return err;
-    } else if (l > 0) {
-      g.src[0] = R + (l - 1) * nv9;
-      g.aff[0] = st + (l - 1) * 36 + 18;
-      a.dst[0] = dA[l - 1];
-      if ((err = wgrad<9, 1, 9>(g, (int)n, DW + W_OFF[l], s))) return err;
-      if ((err = conv<9, 1, 9, ADJ_ACC>(a, (int)n, s))) return err;
+      if ((err = wgrad_mma<36, 9, 4, true>(g, nullptr, d, n, leaky,
+                                           DW + W_OFF[4], part, dbpart, s)))
+        return err;
+      grid = wgrad_grid<36, 9>(n);
     } else {
-      g.src[0] = static_cast<const bf16*>(x);
-      g.aff[0] = nullptr;
-      a.dst[0] = dx;
-      if ((err = wgrad<9, 1, 9>(g, (int)n, DW + W_OFF[0], s))) return err;
-      if ((err = conv<9, 1, 9, ADJ_DX>(a, (int)n, s))) return err;
+      g.p[0] = l > 0 ? R + (l - 1) * nv9 : static_cast<const bf16*>(x);
+      g.aff[0] = l > 0 ? st + (l - 1) * 36 + 18 : nullptr;
+      a.dst[0] = l > 0 ? static_cast<void*>(dA[l - 1]) : dx;
+      if ((err = wgrad_mma<9, 9, 1, true>(g, nullptr, d, n, leaky,
+                                          DW + W_OFF[l], part, dbpart, s)))
+        return err;
+      grid = wgrad_grid<9, 9>(n);
     }
+    mstack_bias_sum_kernel<<<1, RED_THREADS, 0, s>>>(dbpart, grid, 9,
+                                                     DB + l * 9);
+    if ((err = (int)cudaGetLastError())) return err;
+    if (l == 4)
+      err = tc_conv<9, 1, 36, TC_ADJ_INIT>(a, n, s);
+    else if (l > 0)
+      err = tc_conv<9, 1, 9, TC_ADJ_ACC>(a, n, s);
+    else
+      err = tc_conv<9, 1, 9, TC_ADJ_DX>(a, n, s);
+    if (err) return err;
   }
   return 0;
 }
@@ -439,7 +450,7 @@ extern "C" int swinvox_merger_infer(const void* x, const void* w,
     a.src[0] = l == 0 ? static_cast<const bf16*>(x) : A + (l - 1) * nv9;
     a.w = W + W_OFF[l];
     a.fold = F + l * 18;
-    a.dst[0] = A + l * nv9;
+    a.dst = A + l * nv9;
     a.leaky = leaky;
     if ((err = conv<9, 1, 9, INFER>(a, (int)n, s))) return err;
   }
@@ -448,7 +459,7 @@ extern "C" int swinvox_merger_infer(const void* x, const void* w,
     for (int k = 0; k < 4; ++k) a.src[k] = A + k * nv9;
     a.w = W + W_OFF[4];
     a.fold = F + 4 * 18;
-    a.dst[0] = A + 4 * nv9;
+    a.dst = A + 4 * nv9;
     a.leaky = leaky;
     if ((err = conv<9, 4, 9, INFER>(a, (int)n, s))) return err;
   }
@@ -456,7 +467,7 @@ extern "C" int swinvox_merger_infer(const void* x, const void* w,
   a.src[0] = A + 4 * nv9;
   a.w = W + W_OFF[5];
   a.fold = F + 5 * 18;
-  a.dst[0] = out;
+  a.dst = out;
   a.leaky = leaky;
   return conv<9, 1, 1, INFER>(a, (int)n, s);
 }

@@ -102,6 +102,13 @@ def _check(x, kernels, biases, gammas, betas) -> None:
                              f"{x.device}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, contiguous and 16-byte aligned (the kernels load whole 16-byte
+    chunks of each w-row)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def merger_stack_forward(x, kernels, biases, gammas, betas, leaky, eps):
     """Kernel E: returns raw5 [N, 32, 32, 32, 1] bf16, the stats buffer
     [6, 4, 9] f32 (per layer: mean, biased variance, and the normalize
@@ -110,7 +117,7 @@ def merger_stack_forward(x, kernels, biases, gammas, betas, leaky, eps):
     n = x.shape[0]
     lib = build.library()
     dev = x.device
-    x = x.contiguous()
+    x = _aligned(x)
     w = _pack_weights(kernels)
     bias = _rows(biases, 9, 6)
     gamma = _rows(gammas, 9, 5)
@@ -146,7 +153,7 @@ def merger_stack_backward(d_raw5, x, raws, stats, kernels, gammas, leaky,
     dev = x.device
     w = _pack_weights(kernels)
     gamma = _rows(gammas, 9, 5)
-    d_raw5 = d_raw5.to(torch.bfloat16).contiguous()
+    d_raw5 = _aligned(d_raw5.to(torch.bfloat16))
     dx = torch.empty_like(x)
     dw = torch.empty(w.numel(), dtype=torch.float32, device=dev)
     dbias = torch.empty(6, 9, dtype=torch.float32, device=dev)
