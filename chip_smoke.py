@@ -5,12 +5,19 @@ evaluation entry point and training entry point on one NVIDIA GPU.
     python3 chip_smoke.py        # from the repo root, on a machine with a card
     python3 chip_smoke.py --eval-only   # phases 1, 2 and 14 only
     python3 chip_smoke.py --merger-stack  # phases 1, 2, 9 and two steps
+    python3 chip_smoke.py --merger-conv   # phases 1, 2, I, J and two runs
 
 ``--eval-only`` re-reads the evaluation gates alone, e.g. on a copy of
 the sources with a fault planted in a kernel, in a third of the time.
 ``--merger-stack`` runs phase 9 and the profiler's device time of one
 kernel-path training step at batch 32 / 1 view and batch 16 / 3 views,
 the readings of kernels E and F alone (about a minute).
+``--merger-conv`` runs kernel I's check of phase 13 and kernel J's part
+of phase 15 (each with its device time by the profiler beside its events
+time, and two calls on the same inputs bit for bit), then the
+profiler's device time of one ``train-slab`` step (3 views, batch 8:
+J 12, K 6, L 1) and one ``eval-merger`` forward (24 images: I 1), the
+readings of kernels I and J alone.
 
 It imports torch and swinvox_tpu_torch only.  Phases (any failure
 raises, so the exit code is nonzero):
@@ -95,7 +102,8 @@ raises, so the exit code is nonzero):
      error against the f32 plain version <= 2 x the bf16 plain version's
      + 1e-2); ms per forward beside the plain's, and for G the library
      yardstick ``F.scaled_dot_product_attention`` with the bias and mask
-     as ``attn_mask``;
+     as ``attn_mask``; I also called twice on the same inputs (the same
+     bits), and its device time per layer launch (profiler);
  14. the evaluation entry point: a synthetic ShapeNet-format fixture (48
      test samples of 2 categories, 3 views), the full-width default
      model's standard-init weights written by ``save_params_only``, then
@@ -126,8 +134,10 @@ raises, so the exit code is nonzero):
      relative L2 <= REL_TOL (1e-2 for a bf16 output, 1e-4 for f32) and,
      for J and L's dx, phase 4's rule against the f32 plain version; K
      and L launched twice on the same inputs give the same bits (their
-     sums are fixed-order partials, no atomics); ms
-     per call of the kernel, the plain version and one library call
+     sums are fixed-order partials, no atomics), and J too (each output
+     voxel has one writer); ms (CUDA events), and for J in bf16 the
+     device ms of one call (profiler), per call of the kernel, the plain
+     version and one library call
      (``F.conv3d``, ``torch.nn.grad.conv3d_weight``,
      ``aten.convolution_backward``, bf16, unused by the port), summed over
      a step's 12 J, 6 K and 1 L calls; K also in f32 (its CUDA-core route)
@@ -419,8 +429,8 @@ KERNEL_GROUPS = (  # (group, substring), first match wins
     ("kernel B/C LayerNorm", "swin_fwd_ln"),
     ("kernel G/H attention", "attention_kernel"),
     ("kernel H GEMMs", "gemm_kernel"),
-    ("merger convs, tensor cores (E, F)", "mstack_tc_conv"),
-    ("merger convs, CUDA cores (I, J)", "mstack_conv"),
+    ("merger convs, tensor cores (E, F, I, J)", "mstack_tc_conv"),
+    ("merger convs, CUDA-core direct conv (J f32)", "mstack_conv"),
     ("merger weight grads, tensor cores (F, K)", "wgrad_mma"),
     ("merger weight grads, tensor cores (F, K)", "wgrad_reduce"),
     ("merger weight grads, CUDA cores (K f32)", "mstack_wgrad"),
@@ -463,24 +473,39 @@ MERGER_PADDED_FLOP = {("E", "convs"): 117504.0, ("F", "convs"): 90880.0,
                       ("F", "weight-grad partials"): 103680.0}
 
 
-def profile_call(torch, fn, by=None):
+# tiny kernels launched at the start of each profiled window and left
+# out of its readings: late in a long process (this script's phase 15) a
+# window lost the first device records it should have recorded (two of
+# six on an H100 with torch 2.11 and CUDA 12.8, none early in the
+# process), so a window of one short kernel call recorded no device
+# event at all
+PROFILE_WARMUP = 16
+
+
+def profile_call(torch, fn, by=None, ordered=False):
     """Device time by kernel group (``by``, default KERNEL_GROUPS) over
     one call of ``fn`` (which ends in a synchronize) and the busy share
-    (device time / wall time).  Returns None if the profiler recorded no
-    device event."""
+    (device time / wall time); with ``ordered`` also every device event
+    as (short name, ms) in the order they started.  Returns None if the
+    profiler recorded no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARMUP):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         wall = (time.perf_counter() - t0) * 1e3
-    groups, kernels = {}, {}
+    groups, kernels, events = {}, {}, []
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or "spin_kernel" in e.name:
             continue
         name = e.name
+        events.append((e.time_range.start, short_name(name),
+                       e.time_range.elapsed_us() / 1e3))
         group = next((g for g, sub in by or KERNEL_GROUPS
                       if sub.lower() in name.lower()),
                      "other (elementwise, norms, copies)")
@@ -490,10 +515,13 @@ def profile_call(torch, fn, by=None):
     if not groups:
         return None
     device = sum(groups.values())
-    return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
-            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "kernels_ms": dict(sorted(kernels.items(),
-                                      key=lambda kv: -kv[1])[:12])}
+    out = {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
+           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+           "kernels_ms": dict(sorted(kernels.items(),
+                                     key=lambda kv: -kv[1])[:12])}
+    if ordered:
+        out["launches_ms"] = [(n, ms) for _, n, ms in sorted(events)]
+    return out
 
 
 class _TimedPredictor:
@@ -595,6 +623,84 @@ def merger_stack_phase(torch, dev, card, report):
         steps[f"{batch}x{views}"] = profile_step(torch, st, step, img, vol,
                                                  dev, card)
     report["train_step_profiles"] = steps
+
+
+def merger_conv_phase(torch, dev, card, report):
+    """``--merger-conv``: kernel I's check (phase 13's) and kernel J's part
+    of phase 15, each with device times (profiler), then the device time
+    of one ``train-slab`` step at batch 8 / 3 views and one
+    ``eval-merger`` forward of 24 images (profiler, full width)."""
+    from swinvox_tpu_torch.config import default_config
+    from swinvox_tpu_torch.models.swinvox import SwinVoxModel
+    from swinvox_tpu_torch.ops import pallas_band_conv as bc
+    from swinvox_tpu_torch.ops import pallas_down1 as d1
+    from swinvox_tpu_torch.ops import pallas_merger as mi
+    from swinvox_tpu_torch.train.state import create_train_state
+    from swinvox_tpu_torch.train.steps import make_train_step
+
+    check_merger_infer(torch, mi, dev, report)
+    check_train_kernels(torch, bc, d1, dev, report, only_j=True)
+
+    def config(flags):
+        cfg = default_config()
+        cfg.NETWORK.INIT_SCHEME = "standard"
+        for key, val in flags.items():
+            setattr(cfg.NETWORK, key, val)
+        return cfg
+
+    batch, flags = TRAIN_CONFIGS["train-slab"]
+    st, opts = create_train_state(config(flags),
+                                  torch.Generator().manual_seed(SEED),
+                                  device=dev)
+    step = make_train_step(st.model, opts)
+    rng = np.random.default_rng(SEED)
+    img = rng.standard_normal((batch, TRAIN_VIEWS, 224, 224, 3)).astype(
+        np.float32)
+    vol = (rng.random((batch, 32, 32, 32)) < 0.3).astype(np.uint8)
+    bc.merger_conv_forward.launches = 0
+    prof = profile_step(torch, st, step, img, vol, dev, card)
+    j = bc.merger_conv_forward.launches
+    if j != 3 * len(J_STEP):  # two warm-up steps and the profiled one
+        raise AssertionError(f"train-slab: {j} J launches in 3 steps, want "
+                             f"{3 * len(J_STEP)}")
+    report["train_slab_step_profile"] = prof
+    del st, opts, step
+
+    model = SwinVoxModel.from_config(
+        config(EVAL_CONFIGS["eval-merger"]),
+        torch.Generator().manual_seed(SEED)).to(dev).eval()
+    x = torch.from_numpy(rng.standard_normal(
+        (EVAL_IMAGES // EVAL_VIEWS, EVAL_VIEWS, 224, 224, 3)).astype(
+        np.float32)).to(dev).clamp(-1, 1)
+
+    def forward():
+        with torch.inference_mode():
+            model(x)
+        torch.cuda.synchronize()
+
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the eval step runs
+    try:
+        mi.merger_view_weights.launches = 0
+        forward()
+        forward()
+        prof = profile_call(torch, forward)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    if mi.merger_view_weights.launches != 3:
+        raise AssertionError(f"eval-merger: {mi.merger_view_weights.launches}"
+                             " I launches in 3 forwards, want 3")
+    if prof is None:
+        log("eval-merger forward: profiler recorded no device event; not "
+            "measured")
+    else:
+        log(f"eval-merger forward, {EVAL_IMAGES} images, profiler over one "
+            f"forward: wall {prof['wall_ms']:.3f} ms, device "
+            f"{prof['device_ms']:.3f} ms, busy share "
+            f"{prof['busy_share']:.3f}; " + ", ".join(
+                f"{k} {v:.3f}" for k, v in prof["groups_ms"].items())
+            + f"; on {card}")
+    report["eval_merger_forward_profile"] = prof
 
 
 def train_launches(cfg, batch, views):
@@ -1386,9 +1492,13 @@ def check_merger_infer(torch, mi, dev, report):
         ref = mi.merger_view_weights_reference(x, ks, bs, bn)
         plain = mi.merger_view_weights_reference(xb, ks, bs, bn)
     got = mi.merger_view_weights(xb, ks, bs, bn)
+    again = mi.merger_view_weights(xb, ks, bs, bn)
     torch.cuda.synchronize()
     err_k, err_p = hold_kernel(f"inference merger V={EVAL_IMAGES}", got,
                                plain, ref)
+    if not torch.equal(got, again):
+        raise AssertionError(f"inference merger V={EVAL_IMAGES}: two calls "
+                             "on the same inputs differ")
 
     def plain_call():
         with exact_f32(torch):
@@ -1397,11 +1507,30 @@ def check_merger_infer(torch, mi, dev, report):
     p, kk = time_pair(torch, plain_call,
                       lambda: mi.merger_view_weights(xb, ks, bs, bn), iters=5)
     vox = EVAL_IMAGES * 32**3
-    log(f"  kernel {kk:.4f} ms, plain {p:.4f} ms (1x per forward)")
-    report["merger_infer"] = {"max_abs_err": err_k, "err_bf16_plain": err_p,
-                              "ms": kk, "plain_ms": p,
-                              "flop": vox * 35478.0,
-                              "bytes": vox * (9 * 2 + 4) + 17739 * 4}
+    prof = profile_call(torch, lambda: (mi.merger_view_weights(xb, ks, bs, bn),
+                                        torch.cuda.synchronize()),
+                        (("convs", "conv"),), ordered=True)
+    entry = {"max_abs_err": err_k, "err_bf16_plain": err_p, "ms": kk,
+             "plain_ms": p, "flop": vox * MERGER_FLOP,
+             "bytes": vox * (9 * 2 + 4) + 17739 * 4, "repeat_bit_equal": True}
+    log(f"  kernel {kk:.4f} ms, plain {p:.4f} ms (1x per forward); two "
+        "calls bit-equal")
+    if prof is None:
+        log("  inference merger: profiler recorded no device event; device "
+            "time not measured")
+    else:
+        conv = prof["groups_ms"].get("convs", 0.0)
+        layers = [ms_ for n, ms_ in prof["launches_ms"] if "conv" in n]
+        entry.update({"device_ms": prof["device_ms"], "conv_device_ms": conv,
+                      "layer_device_ms": layers,
+                      "own_tflops": vox * MERGER_FLOP / conv / 1e9,
+                      "padded_tflops": vox * MERGER_PADDED_FLOP[("E", "convs")]
+                      / conv / 1e9, "profile": prof})
+        log(f"  one call: device {prof['device_ms']:.4f} ms (convs "
+            f"{conv:.4f}: {entry['own_tflops']:.1f} TFLOP/s of their own "
+            f"FLOPs, {entry['padded_tflops']:.1f} of the padded); per layer "
+            "launch " + ", ".join(f"{m:.4f}" for m in layers))
+    report["merger_infer"] = entry
 
 
 def hold_eval_calls(torch, tag, calls, plain_fn, launches):
@@ -1664,6 +1793,14 @@ def _eval_phase(torch, dev, card, counters, report, work):
     return out
 
 
+# FLOPs a voxel of kernel J's tensor-core body for each (ci, co): depth
+# 16 a tap (36 channels: three 16-channel groups; 1 -> 9: the 27 taps
+# gathered into a depth of 32) against n padded to 8, 16 or 40
+J_PADDED_FLOP = {(9, 9): 2.0 * 27 * 16 * 16, (36, 9): 2.0 * 27 * 48 * 16,
+                 (9, 1): 2.0 * 27 * 16 * 8, (9, 36): 2.0 * 27 * 16 * 40,
+                 (1, 9): 2.0 * 32 * 16}
+
+
 def conv_work(ci, co, v, wgrad=False):
     """(FLOPs, own bytes) of one merger conv call at ``v`` volumes, bf16:
     J reads x and the kernel and writes y; K reads x and dy and writes
@@ -1698,12 +1835,13 @@ def hold_call(name, got, plain, ref, rel_tol, rule=True):
     return err_k, rel, fail
 
 
-def check_train_kernels(torch, bc, d1, dev, report):
+def check_train_kernels(torch, bc, d1, dev, report, only_j=False):
     """Phase 15: kernels J and K (one merger conv, forward and weight
     gradient) at the 24 volumes of a 3-view batch-8 step, every (ci, co)
     they run there (J's adjoints (9, 36) and (1, 9) included), and
     kernel L at the step's 8 refiner volumes, in bf16 and f32, against
-    their plain versions on the same inputs (TF32 off)."""
+    their plain versions on the same inputs (TF32 off); ``only_j``: J
+    alone."""
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(SEED + 15)
 
@@ -1723,7 +1861,7 @@ def check_train_kernels(torch, bc, d1, dev, report):
         if fail:
             failed.append(fail)
 
-    times = {}
+    times, device = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         tol = REL_TOL[tag]
@@ -1735,10 +1873,15 @@ def check_train_kernels(torch, bc, d1, dev, report):
                 ref = bc.merger_conv_reference(x, k)
                 plain = bc.merger_conv_reference(xd, k)
             got = bc.merger_conv_forward(xd, k)
+            again = bc.merger_conv_forward(xd, k)
             torch.cuda.synchronize()
             note("J", f"{tag} {ci}->{co}", *hold_call(
                 f"J {tag} {ci}->{co}", got, plain, ref, tol))
-            if (ci, co) in bc.FORWARD_SHAPES:
+            if not torch.equal(got, again):
+                failed.append(f"J {tag} {ci}->{co}: two launches on the "
+                              "same inputs differ")
+            del again
+            if (ci, co) in bc.FORWARD_SHAPES and not only_j:
                 dy = r(v, 32, 32, 32, co)
                 dyd = dy.to(dtype)
                 with exact_f32(torch):
@@ -1785,12 +1928,36 @@ def check_train_kernels(torch, bc, d1, dev, report):
             lj, _ = time_pair(torch, lambda: F.conv3d(xn, kn, padding=1),
                               lambda: F.conv3d(xn, kn, padding=1))
             times[("J", ci, co)] = (kj, pj, lj)
-            if (ci, co) in bc.FORWARD_SHAPES:
+            # one call's device time: the conv launch, and the whole call
+            # (the wrapper's cast of the kernel beside it)
+            prof = profile_call(torch, lambda: (bc.merger_conv_forward(xd, k),
+                                                torch.cuda.synchronize()),
+                                (("conv", "conv"),))
+            flop = conv_work(ci, co, v)[0]
+            if prof is None:
+                log(f"  J {ci}->{co}: profiler recorded no device event; "
+                    "device time not measured")
+            else:
+                conv = prof["groups_ms"].get("conv", 0.0)
+                device[(ci, co)] = {
+                    "device_ms": prof["device_ms"], "conv_device_ms": conv,
+                    "own_tflops": flop / conv / 1e9,
+                    "padded_tflops": v * 32**3 * J_PADDED_FLOP[(ci, co)]
+                    / conv / 1e9}
+            dv = device.get((ci, co))
+            kk = pk = lk = None
+            if (ci, co) in bc.FORWARD_SHAPES and not only_j:
                 kk, pk, lk = times[("K", ci, co)]
-            log(f"  J {ci}->{co} at {v} volumes: kernel {kj:.4f} ms, plain "
-                f"{pj:.4f}, F.conv3d {lj:.4f}" + (
+            log(f"  J {ci}->{co} at {v} volumes: kernel {kj:.4f} ms" + (
+                f" (device {dv['device_ms']:.4f}, conv "
+                f"{dv['conv_device_ms']:.4f}: {dv['own_tflops']:.1f} TFLOP/s "
+                "own, "
+                f"{dv['padded_tflops']:.1f} padded)" if dv else "")
+                + f", plain {pj:.4f}, F.conv3d {lj:.4f}" + (
                     f"; K {kk:.4f} ms, plain {pk:.4f}, conv3d_weight "
-                    f"{lk:.4f}" if (ci, co) in bc.FORWARD_SHAPES else ""))
+                    f"{lk:.4f}" if kk is not None else ""))
+        if only_j:
+            continue
         x = r(n, 32, 32, 32, 1)
         w = r(4, 4, 4, 1, 32, s=64 ** -0.5)
         dy = r(n, 33, 33, 33, 32)
@@ -1826,7 +1993,7 @@ def check_train_kernels(torch, bc, d1, dev, report):
             times[("L",)] = (kl, pl, ll)
             log(f"  L at {n} volumes: kernel {kl:.4f} ms, plain {pl:.4f}, "
                 f"convolution_backward {ll:.4f}")
-    for kernel, errs in out.items():
+    for kernel, errs in ((k_, e) for k_, e in out.items() if e):
         log(f"{kernel}: " + ", ".join(
             f"{key} {e['max_abs_vs_f32']:.4g}/{e['rel_l2_vs_plain']:.3g}"
             for key, e in errs.items()) + " (max-abs vs f32 plain / "
@@ -1836,6 +2003,8 @@ def check_train_kernels(torch, bc, d1, dev, report):
     # reported beside the table's bf16 row)
     rows = {}
     for kernel, calls in (("J", J_STEP), ("K", K_STEP), ("K f32", K_STEP)):
+        if only_j and kernel != "J":
+            continue
         ms_ = [times[(kernel,) + c] for c in calls]
         work = [conv_work(*c, v, kernel != "J") for c in calls]
         flop = sum(w[0] for w in work)
@@ -1849,18 +2018,35 @@ def check_train_kernels(torch, bc, d1, dev, report):
                         "bound": bound(flop, nbytes, PEAK_F32
                                        if kernel == "K f32" else PEAK_BF16),
                         "calls": len(calls)}
-    kl, pl, ll = times[("L",)]
-    rows["L"] = {"ms": kl, "plain_ms": pl, "library_ms": ll,
-                 "bound": bound(*down1_work(n)), "calls": 1}
+    if len(device) == len(bc.CONV_SHAPES):
+        rows["J"]["device_ms"] = sum(device[c]["device_ms"] for c in J_STEP)
+        rows["J"]["conv_device_ms"] = sum(device[c]["conv_device_ms"]
+                                          for c in J_STEP)
+        flop = sum(conv_work(*c, v)[0] for c in J_STEP)
+        padded = sum(v * 32**3 * J_PADDED_FLOP[c] for c in J_STEP)
+        rows["J"]["own_tflops"] = flop / rows["J"]["conv_device_ms"] / 1e9
+        rows["J"]["padded_tflops"] = (padded / rows["J"]["conv_device_ms"]
+                                      / 1e9)
+    if not only_j:
+        kl, pl, ll = times[("L",)]
+        rows["L"] = {"ms": kl, "plain_ms": pl, "library_ms": ll,
+                     "bound": bound(*down1_work(n)), "calls": 1}
     for kernel, row in rows.items():
         log(f"{kernel} per step ({row['calls']} calls): kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
+            f"{row['ms']:.4f} ms" + (
+                f" (device {row['device_ms']:.4f}, convs "
+                f"{row['conv_device_ms']:.4f}: {row['own_tflops']:.1f} "
+                f"TFLOP/s own, {row['padded_tflops']:.1f} padded)"
+                if "device_ms" in row else "")
+            + f", plain {row['plain_ms']:.4f}, library "
             f"{row['library_ms']:.4f}, bound {row['bound'][0]:.4f} "
             f"({row['bound'][1]})")
     report["train_kernels"] = {"errors": out, "worst": worst,
                                "per_step": rows,
                                "per_call_ms": {" ".join(map(str, k)): t
-                                               for k, t in times.items()}}
+                                               for k, t in times.items()},
+                               "j_device": {f"{ci}->{co}": d for (ci, co), d
+                                            in device.items()}}
     if failed:
         raise AssertionError("training kernels: " + "; ".join(failed))
     return rows, worst
@@ -2453,9 +2639,11 @@ def main(argv) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
-    if argv not in ([], ["--eval-only"], ["--merger-stack"]):
-        print(f"usage: chip_smoke.py [--eval-only | --merger-stack], not "
-              f"{argv}", file=sys.stderr)
+    modes = {"--eval-only": "eval", "--merger-stack": "merger",
+             "--merger-conv": "merger_conv"}
+    if argv and (len(argv) > 1 or argv[0] not in modes):
+        print(f"usage: chip_smoke.py [--eval-only | --merger-stack | "
+              f"--merger-conv], not {argv}", file=sys.stderr)
         return 2
     eval_only = argv == ["--eval-only"]
     if not torch.cuda.is_available():
@@ -2503,17 +2691,18 @@ def main(argv) -> int:
     log("\n".join(ln for ln in ptxas.splitlines()
                   if "registers" in ln or "spill" in ln))
 
-    if eval_only or argv == ["--merger-stack"]:
+    if argv:
         if eval_only:
             eval_phase(torch, dev, card, eval_counters(rw, blk, fm, mi, wa),
                        report)
-        else:
+        elif argv == ["--merger-stack"]:
             merger_stack_phase(torch, dev, card, report)
+        else:
+            merger_conv_phase(torch, dev, card, report)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        name = "eval" if eval_only else "merger"
-        (out_dir / f"chip_smoke_{name}.json").write_text(
-            json.dumps(report, indent=1))
+        (out_dir / f"chip_smoke_{modes[argv[0]]}.json").write_text(
+            json.dumps(report, indent=1, default=str))
         return 0
 
     # ---- 3./4. kernels against their plain versions ----------------------

@@ -1,17 +1,20 @@
-// Device code shared by the merger's CUDA-core conv kernels: the direct
-// 3x3x3 conv over 32^3 channels-last volumes (kernel I in merger_stack.cu,
-// kernel J in merger_conv.cu) and the weight-gradient body of kernel K's
-// f32 route.  Kernels E and F and K's bf16 route run on the tensor cores
-// (merger_mma.cuh).  Included by merger_stack.cu and merger_conv.cu;
-// everything is in an anonymous namespace, so each includes its own copy.
+// The merger's constants and its float32 CUDA-core bodies: the direct
+// 3x3x3 conv over 32^3 channels-last volumes (kernel J's f32 route) and
+// the weight gradient (kernel K's f32 route), both in merger_conv.cu.
+// Every bf16 merger conv (kernels E, F, I, J and K's bf16 route) runs on
+// the tensor cores (merger_mma.cuh, which includes this header).  Only the
+// f32 configurations send f32 volumes.  Everything is in an anonymous
+// namespace, so each source that includes it gets its own copy.
 //
 // The conv: one block per (volume, d plane, half plane of 16 rows), 256
 // threads, two output voxels per thread.  The block loads the 3 x 18 x 34
-// input halo of each source into shared memory as f32, loads the 27 x
-// C_in x C_out weights, and accumulates every output channel with f32
-// FMAs.  A source holds CIN channels at a channel stride of `stride` (0:
-// CIN), so a 36-channel input is four 9-channel sources at offsets 0, 9,
-// 18, 27.
+// input halo of each source into shared memory, loads the 27 x C_in x
+// C_out weights, and accumulates every output channel with f32 FMAs.  A
+// source holds CIN channels at a channel stride of `stride` (0: CIN), so
+// a 36-channel input is four 9-channel sources at offsets 0, 9, 18, 27.
+// What bounds it on an H100: f32 FMAs, 2 x 27 x C_in x C_out a voxel
+// against 4 x (C_in + C_out) bytes (a 9 -> 9 call at 24 volumes: 3.4
+// GFLOP, 51 us at 67 TFLOP/s, against 17 us of bytes).
 //
 // The weight gradient: one block per (volume, 4 d planes, half plane);
 // thread (tap, ci) sums x[v + tap][ci] * dy[v][co] over the block's
@@ -39,27 +42,16 @@ constexpr int TILE = TD * TR * TW;   // positions in a halo tile
 constexpr int THREADS = 256;
 constexpr int WG_PLANES = 4;         // d planes per weight-grad block
 
-// INFER (I): folded BatchNorm and LeakyReLU; CONV (J): the plain conv,
-// weights as given, rounded once to the element type
-enum Mode { INFER = 4, CONV = 5 };
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 // Loads the halo tile of one CIN-channel source around plane d, rows
-// [h0 - 1, h0 + TH + 1), as f32; padding stays 0.
-template <int CIN, typename T>
-__device__ void load_tile(const T* __restrict__ src, int stride, int n,
+// [h0 - 1, h0 + TH + 1); padding stays 0.
+template <int CIN>
+__device__ void load_tile(const float* __restrict__ src, int stride, int n,
                           int d, int h0, float* tile) {
   for (int i = threadIdx.x; i < TILE * CIN; i += blockDim.x) {
     const int ci = i % CIN, p = i / CIN;
@@ -68,31 +60,25 @@ __device__ void load_tile(const T* __restrict__ src, int stride, int n,
     float v = 0.f;
     if (gd >= 0 && gd < S && gh >= 0 && gh < S && gw >= 0 && gw < S) {
       const size_t vox = (((size_t)n * S + gd) * S + gh) * S + gw;
-      v = to_f32(src[vox * stride + ci]);
+      v = src[vox * stride + ci];
     }
     tile[i] = v;
   }
 }
 
-template <typename T>
-struct ConvArgsT {
-  const T* src[4];        // sources, CIN channels each, channels-last
+struct ConvArgs {
+  const float* src[4];    // sources, CIN channels each, channels-last
   int stride;             // channel stride of the sources (0: CIN)
-  const T* w;             // this layer's DHWIO kernel [27][Cin][Cout]
-  const float* fold;      // INFER: folded BatchNorm scale [9], shift [9]
-  void* dst;              // INFER: bf16 [V][9], or f32 [V] for the
-                          // 1-channel last layer; CONV: T [V][COUT]
-  float leaky;            // INFER
+  const float* w;         // the DHWIO kernel [27][Cin][Cout]
+  float* dst;             // [V][COUT]
 };
-typedef ConvArgsT<bf16> ConvArgs;
 
 // Direct 3x3x3 conv of NSRC sources with CIN channels each into COUT
-// channels, one block per (volume, d, half plane), two output voxels per
-// thread.  INFER: followed by the folded inference BatchNorm and
-// LeakyReLU (kernel I).  CONV: the conv alone, no bias (kernel J).
-template <int CIN, int NSRC, int COUT, int MODE, typename T>
+// channels, no bias (kernel J's f32 route), one block per (volume, d,
+// half plane), two output voxels per thread.
+template <int CIN, int NSRC, int COUT>
 __global__ void __launch_bounds__(THREADS)
-    mstack_conv_kernel(ConvArgsT<T> a) {
+    mstack_conv_kernel(ConvArgs a) {
   constexpr int CT = CIN * NSRC;  // input channels of this conv
   extern __shared__ __align__(16) float sm[];
   float* ws = sm;                     // [27][CT][COUT]
@@ -102,7 +88,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const int stride = a.stride ? a.stride : CIN;
 
-  for (int i = tid; i < 27 * CT * COUT; i += THREADS) ws[i] = to_f32(a.w[i]);
+  for (int i = tid; i < 27 * CT * COUT; i += THREADS) ws[i] = a.w[i];
   const int w = tid % 32, r0 = tid / 32;  // rows r0 and r0 + 8
   float acc0[COUT], acc1[COUT];
 #pragma unroll
@@ -132,28 +118,10 @@ __global__ void __launch_bounds__(THREADS)
 
   const size_t v0 = (((size_t)n * S + d) * S + h0 + r0) * S + w;
   const size_t v1 = v0 + 8 * S;
-  if (MODE == INFER) {
 #pragma unroll
-    for (int co = 0; co < COUT; ++co) {
-      float z0 = acc0[co] * a.fold[co] + a.fold[9 + co];
-      float z1 = acc1[co] * a.fold[co] + a.fold[9 + co];
-      z0 = z0 >= 0.f ? z0 : z0 * a.leaky;
-      z1 = z1 >= 0.f ? z1 : z1 * a.leaky;
-      if (COUT == 1) {
-        static_cast<float*>(a.dst)[v0] = z0;
-        static_cast<float*>(a.dst)[v1] = z1;
-      } else {
-        static_cast<bf16*>(a.dst)[v0 * COUT + co] = __float2bfloat16(z0);
-        static_cast<bf16*>(a.dst)[v1 * COUT + co] = __float2bfloat16(z1);
-      }
-    }
-  } else {  // CONV
-    T* dst = static_cast<T*>(a.dst);
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) {
-      store(dst + v0 * COUT + co, acc0[co]);
-      store(dst + v1 * COUT + co, acc1[co]);
-    }
+  for (int co = 0; co < COUT; ++co) {
+    a.dst[v0 * COUT + co] = acc0[co];
+    a.dst[v1 * COUT + co] = acc1[co];
   }
 }
 
@@ -169,21 +137,19 @@ __global__ void mstack_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-template <typename T>
-struct WgradArgsT {
-  const T* src[4];      // the layer's input sources
+struct WgradArgs {
+  const float* src[4];  // the layer's input sources
   int stride;           // channel stride of the sources (0: CIN)
-  const T* dr;          // [V][COUT]
+  const float* dr;      // [V][COUT]
   float* partial;       // [blocks][27][CIN * NSRC][COUT]
 };
-typedef WgradArgsT<bf16> WgradArgs;
 
 // dW partial of one block (a volume's WG_PLANES d planes, one half plane
 // of rows): thread (tap, ci) sums a[v + tap][ci] * dr[v][co] over the
 // block's voxels for every co and source.
-template <int CIN, int NSRC, int COUT, typename T>
+template <int CIN, int NSRC, int COUT>
 __global__ void __launch_bounds__(THREADS)
-    mstack_wgrad_kernel(WgradArgsT<T> a) {
+    mstack_wgrad_kernel(WgradArgs a) {
   constexpr int CT = CIN * NSRC;
   extern __shared__ __align__(16) float sm[];
   float* drt = sm;                     // [TH * S][COUT]
@@ -208,7 +174,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = tid; i < TH * S * COUT; i += THREADS) {
       const int co = i % COUT, p = i / COUT;
       const size_t vox = (((size_t)n * S + d) * S + h0 + p / S) * S + p % S;
-      drt[i] = to_f32(a.dr[vox * COUT + co]);
+      drt[i] = a.dr[vox * COUT + co];
     }
 #pragma unroll
     for (int s = 0; s < NSRC; ++s) {
@@ -251,30 +217,29 @@ size_t wgrad_smem(int cin, int cout) {
 
 int wgrad_blocks(long long n) { return (int)(n * 2 * (S / WG_PLANES)); }
 
-template <int CIN, int NSRC, int COUT, int MODE, typename T>
-int conv(const ConvArgsT<T>& a, int n, cudaStream_t s) {
+template <int CIN, int NSRC, int COUT>
+int conv(const ConvArgs& a, int n, cudaStream_t s) {
   const size_t smem = conv_smem(CIN, NSRC, COUT);
   int err = (int)cudaFuncSetAttribute(
-      mstack_conv_kernel<CIN, NSRC, COUT, MODE, T>,
+      mstack_conv_kernel<CIN, NSRC, COUT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  mstack_conv_kernel<CIN, NSRC, COUT, MODE, T>
-      <<<n * 2 * S, THREADS, smem, s>>>(a);
+  mstack_conv_kernel<CIN, NSRC, COUT><<<n * 2 * S, THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The weight gradient into `out` [27][CIN * NSRC][COUT] f32: the partials
 // launch, then the fixed-order reduce.  a.partial holds
 // wgrad_blocks(n) * 27 * CIN * NSRC * COUT floats.
-template <int CIN, int NSRC, int COUT, typename T>
-int wgrad(const WgradArgsT<T>& a, int n, float* out, cudaStream_t s) {
+template <int CIN, int NSRC, int COUT>
+int wgrad(const WgradArgs& a, int n, float* out, cudaStream_t s) {
   const size_t smem = wgrad_smem(CIN, COUT);
   int err = (int)cudaFuncSetAttribute(
-      mstack_wgrad_kernel<CIN, NSRC, COUT, T>,
+      mstack_wgrad_kernel<CIN, NSRC, COUT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   const int blocks = wgrad_blocks(n);
-  mstack_wgrad_kernel<CIN, NSRC, COUT, T><<<blocks, THREADS, smem, s>>>(a);
+  mstack_wgrad_kernel<CIN, NSRC, COUT><<<blocks, THREADS, smem, s>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
   const int total = 27 * CIN * NSRC * COUT;
   mstack_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(a.partial, blocks,

@@ -1,8 +1,9 @@
-// The merger's 3x3x3 conv on the tensor cores, shared by kernels E and F
-// (merger_stack.cu) and kernel K (merger_conv.cu).  Volumes are 32^3,
-// channels-last, bf16; bf16 x bf16 products are exact in f32, so only the
-// order of the f32 sums differs from the plain version.  No atomics: every
-// sum is a per-block partial reduced in a fixed order.
+// The merger's 3x3x3 conv on the tensor cores, shared by kernels E, F and
+// I (merger_stack.cu) and kernels J and K (merger_conv.cu): every bf16
+// merger conv of the port.  Volumes are 32^3, channels-last, bf16; bf16 x
+// bf16 products are exact in f32, so only the order of the f32 sums
+// differs from the plain version.  No atomics: every output voxel has one
+// writer and every sum is a per-block partial reduced in a fixed order.
 //
 //   * The halo: a block stages its input rows in shared memory with 16
 //     channels (32 bytes) a position, the two 16-byte halves swizzled by
@@ -16,22 +17,29 @@
 //     leaky(shift) is not zero.  tc_convert stages whole voxels, a pair of
 //     positions a thread (36 bytes of r are 4-byte aligned), from rows
 //     that cp.async copied into shared memory or straight from device
-//     memory; stage_group one position a thread (36-channel inputs).
-//   * mstack_tc_conv_kernel (E's six convs, F's input gradients): an
-//     implicit GEMM, M = 16 consecutive w positions of one (volume, d, h)
-//     row, N = C_out padded to 8 or 16 (40 for layer 4's 9 -> 36 input
-//     gradient), depth = one 16-channel group of one tap.  A warp owns RW
+//     memory; stage_group one position a thread (36-channel inputs);
+//     tc_convert_wide one position a thread with 8-byte loads (kernel J's
+//     interleaved 36-channel input, a 16-channel group at a time).
+//   * mstack_tc_conv_kernel (E's six convs, F's input gradients, I's six
+//     convs, J's 9 -> 9, 36 -> 9, 9 -> 1 and 9 -> 36): an implicit GEMM,
+//     M = 16 consecutive w positions of one (volume, d, h) row, N = C_out
+//     padded to 8 or 16 (40 for a 9 -> 36 input gradient), depth = one
+//     16-channel group of one tap.  A warp owns RW
 //     output rows of a w-half: per (kd, kw) its three kh taps' B
 //     fragments (the weights, in shared memory in fragment order) go to
 //     registers and each A fragment (an ldmatrix of 16 positions of one
 //     halo row) serves the up to three output rows that read that row.
-//     The forward copies the next tile's raw rows while the current one
-//     multiplies.  Epilogues: + bias, bf16, the per-block sums of the
-//     rounded outputs and their squares (E); the flipped, channel-swapped
-//     kernel's products into f32, written or added, or into bf16 dx (F).
-//   * mstack_tc_conv1_kernel: layer 5's input gradient, 1 -> 9: one input
-//     channel, so the 27 taps are gathered into the depth (27 -> 32, two
-//     k16 steps) instead of padding one channel to 16 per tap.
+//     A one-source conv of raw or normalized rows copies the next tile's
+//     rows while the current one multiplies.  Epilogues: + bias, bf16, the
+//     per-block sums of the rounded outputs and their squares (E); the
+//     flipped, channel-swapped kernel's products into f32, written or
+//     added, or into bf16 dx (F); the sum rounded once to bf16 (J); the
+//     folded BatchNorm z * s + t on the f32 sum, LeakyReLU, then bf16 (f32
+//     for the last layer's logits) (I).
+//   * mstack_tc_conv1_kernel: a 1 -> 9 conv (F's layer-5 input gradient,
+//     J's 1 -> 9 adjoint): one input channel, so the 27 taps are gathered
+//     into the depth (27 -> 32, two k16 steps) instead of padding one
+//     channel to 16 per tap.
 //   * merger_wgrad_mma_kernel (kernel K's body; F's weight gradients): the
 //     weight gradient as an implicit GEMM, M = 27 taps x C_in, N = C_out,
 //     depth = every voxel: nine warps, one per (kh, kw), each owning the
@@ -242,6 +250,38 @@ __device__ __forceinline__ void tc_convert(const unsigned char* raw,
       *reinterpret_cast<uint4*>(xt + kw_x_off(0, NPOS, pos, 1)) =
           make_uint4(pk[v][4], pk[v][5], pk[v][6], pk[v][7]);
     }
+  }
+}
+
+// Stages 16-channel group `grp` (channels 16 grp .. 16 grp + 15, zeros
+// past C) of one raw source of C interleaved channels (kernel J's 36: the
+// merger's concatenated activations) for halo rows [d0 - 1, d0 + DR - 1)
+// x [h0 - 1, h0 + HR - 1) of volume v: one thread a position, 8-byte loads
+// (a position is 2 C bytes, 8-byte aligned for C % 4 == 0), two 16-byte
+// stores; positions outside the volume and the w = -1, 32 columns zero.
+template <int DR, int HR, int C>
+__device__ __forceinline__ void tc_convert_wide(const bf16* __restrict__ src,
+                                                int grp, int v, int d0,
+                                                int h0, bf16* xt) {
+  static_assert(C % 4 == 0, "8-byte loads of whole positions");
+  constexpr int NPOS = DR * HR * TW;
+  for (int i = threadIdx.x; i < NPOS; i += blockDim.x) {
+    const int row = i / TW, gw = i % TW - 1;
+    const int gd = d0 + row / HR - 1, gh = h0 + row % HR - 1;
+    uint2 q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q[j] = make_uint2(0u, 0u);
+    if (gd >= 0 && gd < S && gh >= 0 && gh < S && gw >= 0 && gw < S) {
+      const uint2* p = reinterpret_cast<const uint2*>(
+          src + ((((size_t)v * S + gd) * S + gh) * S + gw) * C + 16 * grp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (16 * grp + 4 * j < C) q[j] = p[j];
+    }
+    *reinterpret_cast<uint4*>(xt + kw_x_off(0, NPOS, i, 0)) =
+        make_uint4(q[0].x, q[0].y, q[1].x, q[1].y);
+    *reinterpret_cast<uint4*>(xt + kw_x_off(0, NPOS, i, 1)) =
+        make_uint4(q[2].x, q[2].y, q[3].x, q[3].y);
   }
 }
 
@@ -494,35 +534,56 @@ int wgrad_mma(const Src& src, const bf16* dy, const Src& dsrc, long long n,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------ the conv (E, F)
+// ------------------------------------------------ the conv (E, F, I, J)
 // TC_FWD (E): + bias, bf16 out, per-block sums of the rounded outputs and
 // their squares; TC_ADJ_* (F): the input gradient with the flipped,
-// channel-swapped kernel, into f32 (written or added) or bf16 (dx).
-enum TcMode { TC_FWD = 0, TC_ADJ_INIT = 1, TC_ADJ_ACC = 2, TC_ADJ_DX = 3 };
+// channel-swapped kernel and dr on read, into f32 (written or added) or
+// bf16 (dx); TC_CONV (J): raw sources, the kernel as given, the f32 sum
+// rounded once to bf16; TC_INFER (I): raw sources (stored activations),
+// z * s + t (the folded BatchNorm) on the f32 sum, LeakyReLU, bf16 out
+// (f32 for the one-channel last layer).
+enum TcMode {
+  TC_FWD = 0,
+  TC_ADJ_INIT = 1,
+  TC_ADJ_ACC = 2,
+  TC_ADJ_DX = 3,
+  TC_CONV = 4,
+  TC_INFER = 5
+};
 constexpr int TC_THREADS = 256;  // 8 warps
 
-// A conv of NSRC sources of C = 9 channels into COUT channels.  A block
+__host__ __device__ constexpr bool tc_adjoint(int mode) {
+  return mode == TC_ADJ_INIT || mode == TC_ADJ_ACC || mode == TC_ADJ_DX;
+}
+
+// A conv of NSRC sources of C = 9 channels, or (WIDE, kernel J's 36 -> 9)
+// of one source of C interleaved channels, into COUT channels.  A block
 // tile is DT planes x HT rows x 32 w; warp w owns plane w / (2 WR), rows
 // RW * ((w / 2) % WR) .. + RW and the w-half w % 2: RW M-tiles of 16 x
-// COP.  Each source is one 16-channel group of the depth, staged into the
-// halo after the previous one's products (layer 4: four groups, one per
-// source; three over the concatenated channels would save a quarter of
-// the products, but the staging, not the tensor cores, bounds these
-// kernels, and a group per source converts whole voxels with 4- and
-// 8-byte loads).
+// COP.  Each 16-channel group of the depth is staged into the halo after
+// the previous one's products.  Four 9-channel sources (E's and I's layer
+// 4) are four groups, one per source: three over the concatenated
+// channels would save a quarter of the products, but the staging, not
+// the tensor cores, bounds these kernels, and a group per source converts
+// whole voxels with 4- and 8-byte loads.  J's interleaved [V][36] input
+// is three groups over the concatenated channels (36 -> 48): one group of
+// a position is 32 contiguous bytes there, read with 8-byte loads, and
+// the depth pads 36 to 48, not 64.
 template <int C, int NSRC, int COUT, int MODE>
 struct Tc {
   static constexpr int CIN = C * NSRC;
-  static constexpr int NG = NSRC;                // 16-channel groups
+  static constexpr bool WIDE = C != 9;
+  static constexpr int GC = WIDE ? 16 : 9;       // channels a group
+  static constexpr int NG = WIDE ? (C + 15) / 16 : NSRC;  // 16-deep groups
   static constexpr int NT = (COUT + 7) / 8;      // n8 tiles
   static constexpr int COP = NT * 8;
   // input gradients read dr on read (from r and dA, the layer's table)
-  static constexpr bool DRR = MODE != TC_FWD;
-  // a forward of one source: the tile's raw input rows are copied to
-  // shared memory with cp.async (the next tile's while this one
-  // multiplies) and converted there; else each source is converted from
-  // device memory
-  static constexpr bool PIPE = NG == 1 && !DRR;
+  static constexpr bool DRR = tc_adjoint(MODE);
+  // one 9-channel source read raw or normalized on read: the tile's input
+  // rows are copied to shared memory with cp.async (the next tile's while
+  // this one multiplies) and converted there; else each group is
+  // converted from device memory
+  static constexpr bool PIPE = NG == 1 && !DRR && !WIDE;
   // output tile and warp rows: 2 x 8 rows, 1 x 8 for the five n-tiles of
   // layer 4's 9 -> 36 adjoint (they take the registers)
   static constexpr int DT = NT > 2 ? 1 : 2, HT = 8;
@@ -531,10 +592,13 @@ struct Tc {
   static constexpr int DR = DT + 2, HR = HT + 2;
   static constexpr int NPOS = DR * HR * TW;
   static constexpr int VOX = DT * HT * S;
-  static constexpr int NB = COUT == 36 ? 4 : 1;  // output buffers
+  // output buffers: F's 9 -> 36 writes its four sources' f32 dA, J's one
+  // interleaved bf16 tensor
+  static constexpr bool F32_OUT = MODE == TC_ADJ_INIT || MODE == TC_ADJ_ACC;
+  static constexpr int NB = COUT == 36 && F32_OUT ? 4 : 1;
   static constexpr int CB = COUT / NB;           // channels a buffer
   static constexpr int OUT_ES =
-      (MODE == TC_ADJ_INIT || MODE == TC_ADJ_ACC) ? 4 : 2;
+      F32_OUT || (MODE == TC_INFER && COUT == 1) ? 4 : 2;
   static constexpr int X_BYTES = NPOS * 32;
   static constexpr int O_BYTES = VOX * COUT * OUT_ES;
   // the halo, then (after the products) the output tile in its place
@@ -550,7 +614,8 @@ struct Tc {
   static constexpr int PER_SM = FIT > MAX_SM ? MAX_SM : FIT;
   static constexpr int TILES = (S / DT) * (S / HT);  // per volume
   static_assert(DT * WR * 2 == TC_THREADS / 32, "8 warps");
-  static_assert(C == 9, "sources of 9 channels");
+  static_assert(!WIDE || (NSRC == 1 && MODE == TC_CONV),
+                "one interleaved source: kernel J");
   static_assert(PER_SM >= 1, "shared memory");
 };
 
@@ -558,23 +623,25 @@ struct TcArgs {
   Src src;
   const bf16* w;       // the forward layer's DHWIO kernel
   const float* bias;   // TC_FWD: [COUT]
-  void* dst[4];        // TC_FWD: bf16 [V][COUT]; TC_ADJ_INIT / ACC: f32
-                       // [V][9] (COUT 36: four of them); TC_ADJ_DX: bf16
+  const float* fold;   // TC_INFER: scale [9], then shift [9]
+  void* dst[4];        // TC_FWD, TC_CONV: bf16 [V][COUT]; TC_ADJ_INIT /
+                       // ACC: f32 [V][9] (COUT 36: four of them);
+                       // TC_ADJ_DX: bf16; TC_INFER: bf16 [V][9] or f32 [V]
   float* partial;      // TC_FWD: [grid][2][COUT]
   float leaky;
 };
 
-// Weight (depth row k of group grp, output channel n) of tap `tap` of
-// this conv: input channel 9 grp + k (k < 9) of the forward kernel
-// [27][CIN][COUT], or for an input gradient of the flipped,
+// Weight (depth row kk of group grp, output channel n) of tap `tap` of
+// this conv: input channel GC grp + kk (kk < GC) of the kernel
+// [27][CIN][COUT] as given, or for an input gradient (F) of the flipped,
 // channel-swapped forward kernel [27][COUT][CIN]; 0 outside.
-template <int CIN, int COUT, int MODE>
+template <int CIN, int COUT, int GC, int MODE>
 __device__ __forceinline__ bf16 tc_weight(const bf16* __restrict__ w,
                                           int tap, int grp, int kk, int n) {
-  const int k = 9 * grp + kk;
-  if (kk >= 9 || k >= CIN || n >= COUT) return __float2bfloat16(0.f);
-  return MODE == TC_FWD ? w[(tap * CIN + k) * COUT + n]
-                        : w[((26 - tap) * COUT + n) * CIN + k];
+  const int k = GC * grp + kk;
+  if (kk >= GC || k >= CIN || n >= COUT) return __float2bfloat16(0.f);
+  return tc_adjoint(MODE) ? w[((26 - tap) * COUT + n) * CIN + k]
+                          : w[(tap * CIN + k) * COUT + n];
 }
 
 // Writes the block's output tile (staged in shared memory as [NB][VOX][CB]
@@ -683,10 +750,13 @@ __global__ void __launch_bounds__(TC_THREADS, Tc<C, NSRC, COUT, MODE>::PER_SM)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t_begin = (int)blockIdx.x * per;
   const int t_end = min(tiles, t_begin + per);
-  if (T::PIPE && t_begin < t_end) {  // the first tile's rows, in flight
-    const int r = t_begin % T::TILES;
-    tc_issue_raw<T, C>(a.src, t_begin / T::TILES, (r / (S / T::HT)) * T::DT,
-                       (r % (S / T::HT)) * T::HT, raw);
+  if constexpr (T::PIPE) {
+    if (t_begin < t_end) {  // the first tile's rows, in flight
+      const int r = t_begin % T::TILES;
+      tc_issue_raw<T, C>(a.src, t_begin / T::TILES,
+                         (r / (S / T::HT)) * T::DT, (r % (S / T::HT)) * T::HT,
+                         raw);
+    }
   }
   cp_async_commit();
   const int g = lane >> 2, t4 = lane & 3;
@@ -701,20 +771,25 @@ __global__ void __launch_bounds__(TC_THREADS, Tc<C, NSRC, COUT, MODE>::PER_SM)
     const int tap = i / (32 * T::NT * T::NG);
     const int n = nt * 8 + l / 4, k = (l % 4) * 2;
     uint2 f;
-    f.x = pack_bf16(tc_weight<T::CIN, COUT, MODE>(a.w, tap, grp, k, n),
-                    tc_weight<T::CIN, COUT, MODE>(a.w, tap, grp, k + 1, n));
-    f.y = pack_bf16(tc_weight<T::CIN, COUT, MODE>(a.w, tap, grp, k + 8, n),
-                    tc_weight<T::CIN, COUT, MODE>(a.w, tap, grp, k + 9, n));
+    constexpr int CIN = T::CIN, GC = T::GC;
+    f.x = pack_bf16(tc_weight<CIN, COUT, GC, MODE>(a.w, tap, grp, k, n),
+                    tc_weight<CIN, COUT, GC, MODE>(a.w, tap, grp, k + 1, n));
+    f.y = pack_bf16(tc_weight<CIN, COUT, GC, MODE>(a.w, tap, grp, k + 8, n),
+                    tc_weight<CIN, COUT, GC, MODE>(a.w, tap, grp, k + 9, n));
     const_cast<uint2*>(wf)[i] = f;
   }
   load_affines<C, NSRC, T::DRR>(a.src, affs);
-  float bias[T::NT][2], s1[T::NT][2], s2[T::NT][2];
+  // this thread's output channels' bias (E) or fold (I: scale, shift)
+  float bias[T::NT][2], scale[T::NT][2], s1[T::NT][2], s2[T::NT][2];
 #pragma unroll
   for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const int co = nt * 8 + t4 * 2 + b;
-      bias[nt][b] = (MODE == TC_FWD && co < COUT) ? a.bias[co] : 0.f;
+      bias[nt][b] = (MODE == TC_FWD && co < COUT)     ? a.bias[co]
+                    : (MODE == TC_INFER && co < COUT) ? a.fold[9 + co]
+                                                      : 0.f;
+      scale[nt][b] = (MODE == TC_INFER && co < COUT) ? a.fold[co] : 0.f;
       s1[nt][b] = s2[nt][b] = 0.f;
     }
 
@@ -729,7 +804,7 @@ __global__ void __launch_bounds__(TC_THREADS, Tc<C, NSRC, COUT, MODE>::PER_SM)
       for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
-    if (T::PIPE) {
+    if constexpr (T::PIPE) {
       cp_async_wait<0>();
       __syncthreads();  // this tile's rows landed; the previous is stored
       tc_convert<T::DR, T::HR, T::RAW_ROW, false, false>(  // PIPE: no DRR
@@ -747,12 +822,16 @@ __global__ void __launch_bounds__(TC_THREADS, Tc<C, NSRC, COUT, MODE>::PER_SM)
 #pragma unroll
     for (int grp = 0; grp < (T::PIPE ? 0 : T::NG); ++grp) {
       __syncthreads();  // the halo is free (the previous tile is stored)
-      Src one{};        // source grp (a constant index: a stays a param)
-      one.p[0] = a.src.p[grp];
-      one.da = a.src.da;
-      tc_convert<T::DR, T::HR, 0, T::DRR, true>(
-          nullptr, one, v, affs + (T::DRR ? 0 : grp * 2 * C),
-          a.src.aff[grp] != nullptr, a.leaky, d0, h0, xt);
+      if constexpr (T::WIDE) {
+        tc_convert_wide<T::DR, T::HR, C>(a.src.p[0], grp, v, d0, h0, xt);
+      } else {
+        Src one{};  // source grp (a constant index: a stays a param)
+        one.p[0] = a.src.p[grp];
+        one.da = a.src.da;
+        tc_convert<T::DR, T::HR, 0, T::DRR, true>(
+            nullptr, one, v, affs + (T::DRR ? 0 : grp * 2 * C),
+            a.src.aff[grp] != nullptr, a.leaky, d0, h0, xt);
+      }
       __syncthreads();
       tc_products<T>(xt, wf, grp, dd, r0, w0, lane, acc);
     }
@@ -770,8 +849,14 @@ __global__ void __launch_bounds__(TC_THREADS, Tc<C, NSRC, COUT, MODE>::PER_SM)
           const int co = nt * 8 + t4 * 2 + (e & 1);
           if (co >= COUT) continue;
           const int lv = row * S + w0 + g + (e >> 1) * 8;
-          const float val = acc[j][nt][e] + bias[nt][e & 1];
-          if (MODE == TC_FWD || MODE == TC_ADJ_DX) {
+          float val;
+          if (MODE == TC_INFER) {  // the fold on the unrounded f32 sum
+            val = acc[j][nt][e] * scale[nt][e & 1] + bias[nt][e & 1];
+            val = val >= 0.f ? val : val * a.leaky;
+          } else {
+            val = acc[j][nt][e] + bias[nt][e & 1];
+          }
+          if (T::OUT_ES == 2) {
             const bf16 q = __float2bfloat16(val);
             reinterpret_cast<bf16*>(tc_smem)[lv * COUT + co] = q;
             if (MODE == TC_FWD) {
@@ -838,26 +923,32 @@ int tc_conv(const TcArgs& a, long long n, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------- layer 5's input gradient, 1 -> 9
-// A[voxel][tap] = dr5[voxel + tap] (depth: 27 taps padded to 32), B[tap]
-// [ci] = W5[26 - tap][ci][0]; into dA_4 f32 [V][9].
+// --------------------------------------------- the 1 -> 9 convs (F, J)
+// A[voxel][tap] = x[voxel + tap] of a one-channel volume (depth: 27 taps
+// padded to 32).  TC_ADJ_INIT (F's layer-5 input gradient): x = dr5,
+// B[tap][ci] = W5[26 - tap][ci][0] (the forward kernel, flipped here),
+// into dA_4 f32 [V][9].  TC_CONV (J's 1 -> 9): B[tap][co] = w[tap][0][co]
+// (a kernel the host flipped), into bf16 [V][9].
+template <int MODE>
 struct Tc1 {
   static constexpr int DT = 2, HT = 8, DR = DT + 2, HR = HT + 2;
   static constexpr int NPOS = DR * HR * TW;
   static constexpr int VOX = DT * HT * S;
   static constexpr int MPW = DT * HT * 2 / 8;
-  static constexpr int NB = 1, CB = 9, OUT_ES = 4;
+  static constexpr int NB = 1, CB = 9, OUT_ES = MODE == TC_CONV ? 2 : 4;
   static constexpr int X_BYTES = (NPOS * 2 + 15) / 16 * 16;
-  static constexpr size_t SMEM = (size_t)X_BYTES + VOX * 9 * 4;
+  static constexpr size_t SMEM = (size_t)X_BYTES + VOX * 9 * OUT_ES;
   static constexpr int PER_SM = 4;
   static constexpr int TILES = (S / DT) * (S / HT);
+  static_assert(MODE == TC_ADJ_INIT || MODE == TC_CONV, "F or J");
 };
 
-__global__ void __launch_bounds__(TC_THREADS, Tc1::PER_SM)
+template <int MODE>
+__global__ void __launch_bounds__(TC_THREADS, Tc1<MODE>::PER_SM)
     mstack_tc_conv1_kernel(const bf16* __restrict__ dr5,
-                           const bf16* __restrict__ w5, float* dst,
+                           const bf16* __restrict__ w5, void* dst,
                            int tiles, int per) {
-  using T = Tc1;
+  using T = Tc1<MODE>;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* xt = reinterpret_cast<bf16*>(tc_smem);
   unsigned char* so = tc_smem + T::X_BYTES;
@@ -888,7 +979,8 @@ __global__ void __launch_bounds__(TC_THREADS, Tc1::PER_SM)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int tap = ks * 16 + t4 * 2 + (q & 1) + (q >> 1) * 8;
-        e[q] = (tap < 27 && ci < 9) ? w5[(26 - tap) * 9 + ci]
+        const int wt = MODE == TC_CONV ? tap : 26 - tap;
+        e[q] = (tap < 27 && ci < 9) ? w5[wt * 9 + ci]
                                     : __float2bfloat16(0.f);
       }
       b[ks][nt][0] = pack_bf16(e[0], e[1]);
@@ -941,9 +1033,12 @@ __global__ void __launch_bounds__(TC_THREADS, Tc1::PER_SM)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int ci = nt * 8 + t4 * 2 + (e & 1);
-          if (ci < 9)
-            reinterpret_cast<float*>(so)[(row * S + w0 + g + (e >> 1) * 8) *
-                                             9 + ci] = acc[nt][e];
+          const int lv = (row * S + w0 + g + (e >> 1) * 8) * 9 + ci;
+          if (ci >= 9) continue;
+          if (T::OUT_ES == 4)
+            reinterpret_cast<float*>(so)[lv] = acc[nt][e];
+          else
+            reinterpret_cast<bf16*>(so)[lv] = __float2bfloat16(acc[nt][e]);
         }
     }
     __syncthreads();
@@ -952,17 +1047,19 @@ __global__ void __launch_bounds__(TC_THREADS, Tc1::PER_SM)
   }
 }
 
-inline int tc_conv1(const bf16* dr5, const bf16* w5, float* dst, long long n,
-                    cudaStream_t s) {
-  using T = Tc1;
+// x [V][1] and dst 16-byte aligned.
+template <int MODE>
+int tc_conv1(const bf16* x, const bf16* w, void* dst, long long n,
+             cudaStream_t s) {
+  using T = Tc1<MODE>;
   int per, grid;
   tile_plan(n * T::TILES, T::PER_SM, &per, &grid);
   static const int attr = (int)cudaFuncSetAttribute(
-      mstack_tc_conv1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::SMEM);
+      mstack_tc_conv1_kernel<MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (attr) return attr;
-  mstack_tc_conv1_kernel<<<grid, TC_THREADS, T::SMEM, s>>>(
-      dr5, w5, dst, (int)(n * T::TILES), per);
+  mstack_tc_conv1_kernel<MODE><<<grid, TC_THREADS, T::SMEM, s>>>(
+      x, w, dst, (int)(n * T::TILES), per);
   return (int)cudaGetLastError();
 }
 

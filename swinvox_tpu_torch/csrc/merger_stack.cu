@@ -48,13 +48,21 @@
 // fixed order: no atomics, the same bits on every launch.
 //
 // Kernel I (inference, replaces swinvox_tpu/ops/pallas_merger.py:
-// _merger_kernel) runs the CUDA-core direct conv of merger_common.cuh
-// with BatchNorm folded from the running statistics into a per-channel
-// affine: each layer's activation bf16(leaky(conv * s + t)) is written
-// once (the four that conv5 concatenates take 2.4 MB per volume, more
-// than shared memory holds), six launches in all, f32 logits out.  At 24
-// volumes it is 27.9 GFLOP of f32 FMAs (0.42 ms at 67 TFLOP/s) against
-// 17 MB of input and output.
+// _merger_kernel) runs E's six convs on the same tensor-core body
+// (mstack_tc_conv_kernel, TC_INFER mode) with BatchNorm folded from the
+// running statistics and the conv bias into a per-channel affine, applied
+// in the epilogue to the unrounded f32 sum: a_l = bf16(leaky(z_l * s_l +
+// t_l)), written once (the four that conv5 concatenates take 2.4 MB per
+// volume, more than shared memory holds), six launches in all, f32 logits
+// out.  The next layer reads the stored activations raw (layer 4: a_0..a_3
+// as four sources, E's layer-4 path), the halo's out-of-volume positions
+// and padded channels zero, never through an affine; E's normalize on
+// read would round z to bf16 before the affine, which is E's function,
+// not I's.  Bound: at 24 volumes the six convs are 27.9 GFLOP of their
+// own (0.028 ms at 989 TFLOP/s; 92 GFLOP of padded tensor-core work)
+// against 17 MB of input and output (5 us); like E's convs it is bound by
+// the staging, the epilogues and mma.sync's operand traffic in shared
+// memory.
 //
 // What bounds E and F on an H100: at N = 48 volumes (3 views, batch 16)
 // the six convs are 1.57 M voxels x 35.5 k FLOP (56 GFLOP; 117.5 k FLOP
@@ -364,7 +372,8 @@ extern "C" int swinvox_merger_stack_bwd(
     if ((err = wgrad_mma<9, 1, 1, false>(g, dr5, Src{}, n, leaky,
                                          DW + W_OFF[5], part, nullptr, s)))
       return err;
-    if ((err = tc_conv1(dr5, W + W_OFF[5], dA[4], n, s))) return err;
+    if ((err = tc_conv1<TC_ADJ_INIT>(dr5, W + W_OFF[5], dA[4], n, s)))
+      return err;
   }
 
   for (int l = 4; l >= 0; --l) {
@@ -431,43 +440,40 @@ extern "C" int swinvox_merger_stack_bwd(
 // `merger_view_weights`).  x [n, 32^3, 9] bf16; w the six DHWIO kernels
 // packed in bf16 (offsets W_OFF); fold [6][2][9] f32, per layer the
 // BatchNorm folded from its running statistics with the conv bias,
-// z * s + t (layer 5: element 0).  Each layer is one INFER launch of the
-// direct conv: a_l = bf16(leaky(conv_l(a_{l-1}) * s_l + t_l)) into the
-// scratch acts [5][n*32^3][9] bf16 (conv5 reads a_0..a_3 as its four
-// sources), and the last layer's f32 logits into out [n*32^3].
+// z * s + t (layer 5: element 0).  Each layer is one TC_INFER launch of
+// the tensor-core conv: a_l = bf16(leaky(conv_l(a_{l-1}) * s_l + t_l))
+// into the scratch acts [5][n*32^3][9] bf16 (conv5 reads a_0..a_3 as its
+// four sources), and the last layer's f32 logits into out [n*32^3]; x,
+// acts and out 16-byte aligned.
 extern "C" int swinvox_merger_infer(const void* x, const void* w,
                                     const void* fold, void* acts, void* out,
                                     long long n, float leaky, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return 0;
+  if (!aligned16(x) || !aligned16(acts) || !aligned16(out))
+    return (int)cudaErrorMisalignedAddress;
   const bf16* W = static_cast<const bf16*>(w);
   const float* F = static_cast<const float*>(fold);
   bf16* A = static_cast<bf16*>(acts);
   const size_t nv9 = (size_t)n * V3 * 9;
+  auto args = [&](int layer, void* dst) {
+    TcArgs a{};
+    a.w = W + W_OFF[layer];
+    a.fold = F + layer * 18;
+    a.dst[0] = dst;
+    a.leaky = leaky;
+    return a;
+  };
   int err;
   for (int l = 0; l < 4; ++l) {
-    ConvArgs a{};
-    a.src[0] = l == 0 ? static_cast<const bf16*>(x) : A + (l - 1) * nv9;
-    a.w = W + W_OFF[l];
-    a.fold = F + l * 18;
-    a.dst = A + l * nv9;
-    a.leaky = leaky;
-    if ((err = conv<9, 1, 9, INFER>(a, (int)n, s))) return err;
+    TcArgs a = args(l, A + l * nv9);
+    a.src.p[0] = l == 0 ? static_cast<const bf16*>(x) : A + (l - 1) * nv9;
+    if ((err = tc_conv<9, 1, 9, TC_INFER>(a, n, s))) return err;
   }
-  {
-    ConvArgs a{};
-    for (int k = 0; k < 4; ++k) a.src[k] = A + k * nv9;
-    a.w = W + W_OFF[4];
-    a.fold = F + 4 * 18;
-    a.dst = A + 4 * nv9;
-    a.leaky = leaky;
-    if ((err = conv<9, 4, 9, INFER>(a, (int)n, s))) return err;
-  }
-  ConvArgs a{};
-  a.src[0] = A + 4 * nv9;
-  a.w = W + W_OFF[5];
-  a.fold = F + 5 * 18;
-  a.dst = out;
-  a.leaky = leaky;
-  return conv<9, 1, 1, INFER>(a, (int)n, s);
+  TcArgs a = args(4, A + 4 * nv9);
+  for (int k = 0; k < 4; ++k) a.src.p[k] = A + k * nv9;
+  if ((err = tc_conv<9, 4, 9, TC_INFER>(a, n, s))) return err;
+  a = args(5, out);
+  a.src.p[0] = A + 4 * nv9;
+  return tc_conv<9, 1, 1, TC_INFER>(a, n, s);
 }

@@ -37,6 +37,7 @@ BF16_ONLY_ROUTES = {
     "USE_PALLAS_SWIN_BLOCK_TRAIN": "C, D",
     "USE_PALLAS_WINDOW_ATTENTION": "H",
     "USE_MERGER_STACK": "E, F",
+    "USE_PALLAS_MERGER": "I",
 }
 
 log = logging.getLogger(__name__)
@@ -112,7 +113,7 @@ class SwinVoxModel(nn.Module):
         At ``COMPUTE_DTYPE`` float32 the routes of ``BF16_ONLY_ROUTES``
         resolve to their plain paths (their kernels take bf16 only; the
         wrappers still raise on f32 tokens).  ``model.kernel_routes``
-        holds those four flags as resolved."""
+        holds those five flags as resolved."""
         net = cfg.NETWORK
         flags = {f: bool(getattr(net, f)) for f in BF16_ONLY_ROUTES}
         if net.COMPUTE_DTYPE == "float32":
@@ -143,7 +144,7 @@ class SwinVoxModel(nn.Module):
             use_merger_stack=flags["USE_MERGER_STACK"],
             merger_stack_max_volumes=net.MERGER_STACK_MAX_VOLUMES,
             use_pallas=flags["USE_PALLAS_WINDOW_ATTENTION"],
-            use_pallas_merger=net.USE_PALLAS_MERGER,
+            use_pallas_merger=flags["USE_PALLAS_MERGER"],
             use_slab_merger=net.USE_SLAB_MERGER,
             use_pallas_merger_train=net.USE_PALLAS_MERGER_TRAIN,
             refiner_down1_pallas=net.REFINER_DOWN1_PALLAS,

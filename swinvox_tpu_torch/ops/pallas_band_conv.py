@@ -20,8 +20,9 @@ merger's (ci, co) in {(9, 9), (36, 9), (9, 1)}:
     parameter and keeps dW in float32.
 
 On a CUDA tensor ``merger_conv_forward`` launches kernel J and
-``merger_conv_wgrad`` kernel K (``csrc/merger_conv.cu``), each counting its
-launches; on a CPU tensor they run ``merger_conv_reference`` and
+``merger_conv_wgrad`` kernel K (``csrc/merger_conv.cu``; bf16 on the
+tensor-core conv bodies of ``csrc/merger_mma.cuh``, f32 on the CUDA-core
+bodies of ``csrc/merger_common.cuh``), each counting its launches; on a CPU tensor they run ``merger_conv_reference`` and
 ``merger_conv_wgrad_reference``, the same functions in plain PyTorch (a
 float32 conv of the operands rounded to x's dtype, and one float32
 product per tap).  The conv is a
@@ -100,6 +101,8 @@ def merger_conv_forward(x: torch.Tensor,
                          f"[3, 3, 3, ci, co] on {x.device}")
     lib = build.library()
     x = x.contiguous()
+    # the bf16 route copies whole rows with 16-byte cp.async
+    x = x if x.data_ptr() % 16 == 0 else x.clone()
     w = kernel.detach().to(x.dtype).contiguous()
     v = x.shape[0]
     y = torch.empty(v, SIDE, SIDE, SIDE, co, dtype=x.dtype, device=x.device)

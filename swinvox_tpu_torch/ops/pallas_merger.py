@@ -13,7 +13,9 @@ with BatchNorm folded from the running statistics and the conv bias,
 ``s = gamma / sqrt(var + 1e-5)``, ``t = (bias - mean) * s + beta``
 (``pallas_merger.py:237-241``).  The softmax over views stays with the
 caller.  On a CUDA tensor it launches kernel I (``csrc/merger_stack.cu``,
-``swinvox_merger_infer``); on a CPU tensor ``merger_view_weights_reference``,
+``swinvox_merger_infer``: six convs on the tensor-core body of
+``csrc/merger_mma.cuh``, the fold and LeakyReLU on each f32 sum); on a CPU
+tensor ``merger_view_weights_reference``,
 the same function in plain PyTorch.  Kernels are given in the JAX layout
 [3, 3, 3, C_in, C_out] (DHWIO).
 """
@@ -109,6 +111,8 @@ def merger_view_weights(
     n = x.shape[0]
     dev = x.device
     x = x.contiguous()
+    # the kernel copies whole rows with 16-byte cp.async
+    x = x if x.data_ptr() % 16 == 0 else x.clone()
     w = _pack_weights(kernels)
     fold = torch.zeros(6, 2, 9, dtype=torch.float32, device=dev)
     for layer, (bn, b) in enumerate(zip(bn_params, biases)):

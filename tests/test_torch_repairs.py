@@ -7,9 +7,9 @@
     (``models/layers.max_pool``) against the JAX package's ``max_pool``
     (``reduce_window``), with tied values in most windows, forward and
     gradient (a tie's gradient goes to the first maximum in both);
-  * ``SwinVoxModel.from_config`` at float32 with the default flags: the
-    four bf16-only kernel routes resolve to the plain path and a train
-    step runs.
+  * ``SwinVoxModel.from_config`` at float32: the five bf16-only kernel
+    routes resolve to the plain path and a train step runs; with
+    USE_PALLAS_MERGER (kernel I) an eval forward runs the plain merger.
 
 Inputs are drawn with numpy from a seed.  Tolerances: the matrices'
 weights are float32 roundings of JAX's, 1e-6 absolute on O(1) values;
@@ -80,11 +80,12 @@ def test_refiner_pool_matches_jax_max_pool(rng):
 
 
 def test_from_config_float32_runs_the_plain_routes(caplog):
-    """At COMPUTE_DTYPE float32 with the default flags from_config
-    resolves USE_PALLAS_SWIN_BLOCK(_TRAIN), USE_PALLAS_WINDOW_ATTENTION and
-    USE_MERGER_STACK to the plain path, says so in one log line, exposes
-    the resolved flags, and a train step runs on the CPU; at bfloat16 the
-    flags stay as configured."""
+    """At COMPUTE_DTYPE float32 with the default flags (and
+    USE_PALLAS_MERGER, the one bf16-only route off by default) from_config
+    resolves USE_PALLAS_SWIN_BLOCK(_TRAIN), USE_PALLAS_WINDOW_ATTENTION,
+    USE_MERGER_STACK and USE_PALLAS_MERGER to the plain path, says so in
+    one log line, exposes the resolved flags, and a train step runs on the
+    CPU; at bfloat16 the flags stay as configured."""
     from swinvox_tpu_torch.config import default_config
     from swinvox_tpu_torch.models.swinvox import BF16_ONLY_ROUTES, SwinVoxModel
     from swinvox_tpu_torch.train.state import create_train_state
@@ -93,10 +94,12 @@ def test_from_config_float32_runs_the_plain_routes(caplog):
     cfg = default_config()
     cfg.NETWORK.SWIN_DEPTHS = (1, 1, 1, 1)
     cfg.NETWORK.RESNET_STAGE_DEPTHS = (1, 1, 1)
+    cfg.NETWORK.USE_PALLAS_MERGER = True
     assert all(getattr(cfg.NETWORK, f) for f in BF16_ONLY_ROUTES)
     bf16 = SwinVoxModel.from_config(cfg)
     assert bf16.kernel_routes == dict.fromkeys(BF16_ONLY_ROUTES, True)
     assert bf16.encoder.swin.chain and bf16.encoder.swin.train_chain
+    assert bf16.merger.use_pallas
 
     cfg.NETWORK.COMPUTE_DTYPE = "float32"
     with caplog.at_level(logging.INFO):
@@ -108,7 +111,8 @@ def test_from_config_float32_runs_the_plain_routes(caplog):
     assert not (swin.chain or swin.train_chain)
     blk = swin.stage0_block0
     assert not (blk.use_pallas_block or blk.use_pallas_block_train
-                or blk.use_pallas or model.merger.use_stack)
+                or blk.use_pallas or model.merger.use_stack
+                or model.merger.use_pallas)
 
     state, opts = create_train_state(cfg, device="cpu")
     assert state.model.kernel_routes == model.kernel_routes
@@ -119,3 +123,34 @@ def test_from_config_float32_runs_the_plain_routes(caplog):
     state, metrics = step(state, images, volumes,
                           torch.Generator().manual_seed(0))
     assert state.step == 1 and bool(torch.isfinite(metrics["total_loss"]))
+
+
+def test_float32_eval_merger_runs_the_plain_merger():
+    """USE_PALLAS_MERGER at COMPUTE_DTYPE float32, which the JAX package
+    serves with its fused merger at float32: kernel I takes bfloat16
+    volumes only (its wrapper raises on a float32 CUDA tensor), so
+    from_config resolves the route to the plain merger (eval-mode
+    BatchNorm from the running statistics: the function the fused merger
+    folds), and an eval forward equals the one with the flag off, bit for
+    bit; at bfloat16 the flag stays on."""
+    from swinvox_tpu_torch.config import default_config
+    from swinvox_tpu_torch.models.swinvox import SwinVoxModel
+
+    cfg = default_config()
+    cfg.NETWORK.SWIN_DEPTHS = (1, 1, 1, 1)
+    cfg.NETWORK.RESNET_STAGE_DEPTHS = (1, 1, 1)
+    cfg.NETWORK.INIT_SCHEME = "standard"
+    cfg.NETWORK.USE_PALLAS_MERGER = True
+    assert SwinVoxModel.from_config(cfg).merger.use_pallas
+    cfg.NETWORK.COMPUTE_DTYPE = "float32"
+    fused = SwinVoxModel.from_config(cfg, torch.Generator().manual_seed(0))
+    assert not fused.merger.use_pallas
+    assert fused.kernel_routes["USE_PALLAS_MERGER"] is False
+    cfg.NETWORK.USE_PALLAS_MERGER = False
+    plain = SwinVoxModel.from_config(cfg, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (1, 2, 224, 224, 3)).astype(np.float32))
+    with torch.no_grad():
+        got = fused.eval()(x)["refined_volumes"]
+        want = plain.eval()(x)["refined_volumes"]
+    assert torch.equal(got, want)
