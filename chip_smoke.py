@@ -6,6 +6,7 @@ evaluation entry point and training entry point on one NVIDIA GPU.
     python3 chip_smoke.py --eval-only   # phases 1, 2 and 14 only
     python3 chip_smoke.py --merger-stack  # phases 1, 2, 9 and two steps
     python3 chip_smoke.py --merger-conv   # phases 1, 2, I, J and two runs
+    python3 chip_smoke.py --wmsa-down1    # phases 1, 2, H, L and two runs
 
 ``--eval-only`` re-reads the evaluation gates alone, e.g. on a copy of
 the sources with a fault planted in a kernel, in a third of the time.
@@ -17,7 +18,12 @@ of phase 15 (each with its device time by the profiler beside its events
 time, and two calls on the same inputs bit for bit), then the
 profiler's device time of one ``train-slab`` step (3 views, batch 8:
 J 12, K 6, L 1) and one ``eval-merger`` forward (24 images: I 1), the
-readings of kernels I and J alone.
+readings of kernels I and J alone.  ``--wmsa-down1`` runs kernel H's
+check of phase 13 and kernel L's part of phase 15 (each with its device
+time by launch group or launch beside its events time, its library
+yardstick and two calls bit for bit), then the profiler's device time
+of one ``train-slab`` step (L 1) and one ``eval-wmsa`` forward (H 12),
+the readings of kernels H and L alone.
 
 It imports torch and swinvox_tpu_torch only.  Phases (any failure
 raises, so the exit code is nonzero):
@@ -100,10 +106,13 @@ raises, so the exit code is nonzero):
      images: TEST.EVAL_BATCH_SIZE 8 x 3 views), masked and unmasked, and
      kernel I (inference merger) at 24 volumes, by phase 4's rule (max-abs
      error against the f32 plain version <= 2 x the bf16 plain version's
-     + 1e-2); ms per forward beside the plain's, and for G the library
-     yardstick ``F.scaled_dot_product_attention`` with the bias and mask
-     as ``attn_mask``; I also called twice on the same inputs (the same
-     bits), and its device time per layer launch (profiler);
+     + 1e-2); ms per forward beside the plain's, and the library
+     yardsticks, for G ``F.scaled_dot_product_attention`` with the bias
+     and mask as ``attn_mask``, for H ``F.multi_head_attention_forward``
+     with the bias and mask summed into a float ``attn_mask``; H and I
+     also called twice on the same inputs (the same bits), H's device
+     time per call split into its GEMMs and its attention and I's per
+     layer launch (profiler);
  14. the evaluation entry point: a synthetic ShapeNet-format fixture (48
      test samples of 2 categories, 3 views), the full-width default
      model's standard-init weights written by ``save_params_only``, then
@@ -135,13 +144,14 @@ raises, so the exit code is nonzero):
      for J and L's dx, phase 4's rule against the f32 plain version; K
      and L launched twice on the same inputs give the same bits (their
      sums are fixed-order partials, no atomics), and J too (each output
-     voxel has one writer); ms (CUDA events), and for J in bf16 the
-     device ms of one call (profiler), per call of the kernel, the plain
-     version and one library call
+     voxel has one writer); ms (CUDA events), and for J in bf16 and L in
+     both types the device ms of one call (profiler; L's by launch), per
+     call of the kernel, the plain version and one library call
      (``F.conv3d``, ``torch.nn.grad.conv3d_weight``,
      ``aten.convolution_backward``, bf16, unused by the port), summed over
-     a step's 12 J, 6 K and 1 L calls; K also in f32 (its CUDA-core route)
-     beside ``conv3d_weight`` in f32 with TF32 off and its f32 bound;
+     a step's 12 J, 6 K and 1 L calls; K and L also in f32 (their
+     CUDA-core routes) beside ``conv3d_weight`` and
+     ``convolution_backward`` in f32 with TF32 off and their f32 bounds;
  16. the training entry point, ``runner`` in train mode in-process, at
      full width on a synthetic fixture (48 train and 16 val samples, 2
      categories, 3 views), 2 epochs with validation each epoch and
@@ -192,8 +202,8 @@ are deleted before the next.
 
 Kernel G is reached only through ``window_attention(use_pallas=True)``,
 as its TPU kernel is in the JAX package: no model path launches it, so
-its row reports 0 launches; kernel H runs G's device code on its own
-packed qkv.
+its row reports 0 launches; kernel H runs three of kernel B's launches
+(``swinvox_fused_msa`` in ``csrc/swin_block.cu``).
 
 The weights use the "standard" init scheme: the reference scheme's x0.1
 convs and N(0, 0.001) linears make every output exactly 0.5, which would
@@ -424,11 +434,11 @@ KERNEL_GROUPS = (  # (group, substring), first match wins
     ("kernel D attention", "swin_bwd_attn"),
     ("kernel D LayerNorm, sums", "swin_bwd_"),
     ("kernel B/C GEMMs with LayerNorm", "swin_fwd_proj_ln"),
-    ("kernel B/C GEMMs", "swin_fwd_gemm"),
-    ("kernel B/C attention", "swin_fwd_attn"),
+    ("kernel B/C/H GEMMs", "swin_fwd_gemm"),
+    ("kernel B/C/H attention", "swin_fwd_attn"),
     ("kernel B/C LayerNorm", "swin_fwd_ln"),
-    ("kernel G/H attention", "attention_kernel"),
-    ("kernel H GEMMs", "gemm_kernel"),
+    ("kernel G attention", "attention_kernel"),
+    ("kernel L (down1 backward)", "down1_"),
     ("merger convs, tensor cores (E, F, I, J)", "mstack_tc_conv"),
     ("merger convs, CUDA-core direct conv (J f32)", "mstack_conv"),
     ("merger weight grads, tensor cores (F, K)", "wgrad_mma"),
@@ -486,19 +496,24 @@ def profile_call(torch, fn, by=None, ordered=False):
     """Device time by kernel group (``by``, default KERNEL_GROUPS) over
     one call of ``fn`` (which ends in a synchronize) and the busy share
     (device time / wall time); with ``ordered`` also every device event
-    as (short name, ms) in the order they started.  Returns None if the
-    profiler recorded no device event."""
+    as (short name, ms) in the order they started.  A session that
+    recorded no device event is run once more (``fn`` called again);
+    returns None if that one recorded none either."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_WARMUP):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        wall = (time.perf_counter() - t0) * 1e3
+    for _ in range(2):  # a second session if the first recorded nothing
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_WARMUP):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            wall = (time.perf_counter() - t0) * 1e3
+        if any(e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.name for e in prof.events()):
+            break
     groups, kernels, events = {}, {}, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or "spin_kernel" in e.name:
@@ -625,31 +640,28 @@ def merger_stack_phase(torch, dev, card, report):
     report["train_step_profiles"] = steps
 
 
-def merger_conv_phase(torch, dev, card, report):
-    """``--merger-conv``: kernel I's check (phase 13's) and kernel J's part
-    of phase 15, each with device times (profiler), then the device time
-    of one ``train-slab`` step at batch 8 / 3 views and one
-    ``eval-merger`` forward of 24 images (profiler, full width)."""
+def flag_config(flags):
+    """The full-width default config, standard init, with ``flags`` set on
+    its NETWORK."""
     from swinvox_tpu_torch.config import default_config
-    from swinvox_tpu_torch.models.swinvox import SwinVoxModel
-    from swinvox_tpu_torch.ops import pallas_band_conv as bc
-    from swinvox_tpu_torch.ops import pallas_down1 as d1
-    from swinvox_tpu_torch.ops import pallas_merger as mi
+
+    cfg = default_config()
+    cfg.NETWORK.INIT_SCHEME = "standard"
+    for key, val in flags.items():
+        setattr(cfg.NETWORK, key, val)
+    return cfg
+
+
+def profile_train_config(torch, dev, card, name, counter, per_step):
+    """The device time of one step of the training configuration ``name``
+    (TRAIN_CONFIGS: its batch and flags, 3 views) by kernel group
+    (profiler), after two warm-up steps; ``counter`` (a kernel wrapper)
+    must count ``per_step`` launches a step."""
     from swinvox_tpu_torch.train.state import create_train_state
     from swinvox_tpu_torch.train.steps import make_train_step
 
-    check_merger_infer(torch, mi, dev, report)
-    check_train_kernels(torch, bc, d1, dev, report, only_j=True)
-
-    def config(flags):
-        cfg = default_config()
-        cfg.NETWORK.INIT_SCHEME = "standard"
-        for key, val in flags.items():
-            setattr(cfg.NETWORK, key, val)
-        return cfg
-
-    batch, flags = TRAIN_CONFIGS["train-slab"]
-    st, opts = create_train_state(config(flags),
+    batch, flags = TRAIN_CONFIGS[name]
+    st, opts = create_train_state(flag_config(flags),
                                   torch.Generator().manual_seed(SEED),
                                   device=dev)
     step = make_train_step(st.model, opts)
@@ -657,18 +669,27 @@ def merger_conv_phase(torch, dev, card, report):
     img = rng.standard_normal((batch, TRAIN_VIEWS, 224, 224, 3)).astype(
         np.float32)
     vol = (rng.random((batch, 32, 32, 32)) < 0.3).astype(np.uint8)
-    bc.merger_conv_forward.launches = 0
+    counter.launches = 0
     prof = profile_step(torch, st, step, img, vol, dev, card)
-    j = bc.merger_conv_forward.launches
-    if j != 3 * len(J_STEP):  # two warm-up steps and the profiled one
-        raise AssertionError(f"train-slab: {j} J launches in 3 steps, want "
-                             f"{3 * len(J_STEP)}")
-    report["train_slab_step_profile"] = prof
-    del st, opts, step
+    if counter.launches != 3 * per_step:  # two warm-up steps and one
+        raise AssertionError(f"{name}: {counter.launches} launches of "
+                             f"{counter.__name__} in 3 steps, want "
+                             f"{3 * per_step}")
+    return prof
+
+
+def profile_eval_config(torch, dev, card, name, counter, per_forward):
+    """The device time of one evaluation forward of ``EVAL_IMAGES`` images
+    under the configuration ``name`` (EVAL_CONFIGS) by kernel group
+    (profiler), after two warm-up forwards, with cuDNN deterministic as
+    the eval step runs it; ``counter`` must count ``per_forward``
+    launches a forward."""
+    from swinvox_tpu_torch.models.swinvox import SwinVoxModel
 
     model = SwinVoxModel.from_config(
-        config(EVAL_CONFIGS["eval-merger"]),
+        flag_config(EVAL_CONFIGS[name]),
         torch.Generator().manual_seed(SEED)).to(dev).eval()
+    rng = np.random.default_rng(SEED + 1)
     x = torch.from_numpy(rng.standard_normal(
         (EVAL_IMAGES // EVAL_VIEWS, EVAL_VIEWS, 224, 224, 3)).astype(
         np.float32)).to(dev).clamp(-1, 1)
@@ -679,28 +700,66 @@ def merger_conv_phase(torch, dev, card, report):
         torch.cuda.synchronize()
 
     cudnn_det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True  # as the eval step runs
+    torch.backends.cudnn.deterministic = True
     try:
-        mi.merger_view_weights.launches = 0
+        counter.launches = 0
         forward()
         forward()
         prof = profile_call(torch, forward)
     finally:
         torch.backends.cudnn.deterministic = cudnn_det
-    if mi.merger_view_weights.launches != 3:
-        raise AssertionError(f"eval-merger: {mi.merger_view_weights.launches}"
-                             " I launches in 3 forwards, want 3")
+    if counter.launches != 3 * per_forward:
+        raise AssertionError(f"{name}: {counter.launches} launches of "
+                             f"{counter.__name__} in 3 forwards, want "
+                             f"{3 * per_forward}")
     if prof is None:
-        log("eval-merger forward: profiler recorded no device event; not "
+        log(f"{name} forward: profiler recorded no device event; not "
             "measured")
     else:
-        log(f"eval-merger forward, {EVAL_IMAGES} images, profiler over one "
+        log(f"{name} forward, {EVAL_IMAGES} images, profiler over one "
             f"forward: wall {prof['wall_ms']:.3f} ms, device "
             f"{prof['device_ms']:.3f} ms, busy share "
             f"{prof['busy_share']:.3f}; " + ", ".join(
                 f"{k} {v:.3f}" for k, v in prof["groups_ms"].items())
             + f"; on {card}")
-    report["eval_merger_forward_profile"] = prof
+    return prof
+
+
+def merger_conv_phase(torch, dev, card, report):
+    """``--merger-conv``: kernel I's check (phase 13's) and kernel J's part
+    of phase 15, each with device times (profiler), then the device time
+    of one ``train-slab`` step at batch 8 / 3 views and one
+    ``eval-merger`` forward of 24 images (profiler, full width)."""
+    from swinvox_tpu_torch.ops import pallas_band_conv as bc
+    from swinvox_tpu_torch.ops import pallas_down1 as d1
+    from swinvox_tpu_torch.ops import pallas_merger as mi
+
+    check_merger_infer(torch, mi, dev, report)
+    check_train_kernels(torch, bc, d1, dev, report, only_j=True)
+    report["train_slab_step_profile"] = profile_train_config(
+        torch, dev, card, "train-slab", bc.merger_conv_forward, len(J_STEP))
+    report["eval_merger_forward_profile"] = profile_eval_config(
+        torch, dev, card, "eval-merger", mi.merger_view_weights, 1)
+
+
+def wmsa_down1_phase(torch, dev, card, report):
+    """``--wmsa-down1``: kernel H's check (phase 13's) and kernel L's part
+    of phase 15, each with device times (profiler) and two calls bit for
+    bit, then the device time of one ``train-slab`` step at batch 8 / 3
+    views (L 1) and one ``eval-wmsa`` forward of 24 images (H 12)."""
+    from swinvox_tpu_torch.models.swin import shifted_window_mask
+    from swinvox_tpu_torch.ops import pallas_down1 as d1
+    from swinvox_tpu_torch.ops import pallas_fused_msa as fm
+
+    check_fused_msa(torch, fm, shifted_window_mask, dev, report)
+    _, _, _, failed = check_down1(torch, d1, dev, report)
+    if failed:
+        raise AssertionError("kernel L: " + "; ".join(failed))
+    report["train_slab_step_profile"] = profile_train_config(
+        torch, dev, card, "train-slab", d1.down1_backward, 1)
+    report["eval_wmsa_forward_profile"] = profile_eval_config(
+        torch, dev, card, "eval-wmsa", fm.fused_msa_forward,
+        swin_calls(flag_config({})))
 
 
 def train_launches(cfg, batch, views):
@@ -1424,16 +1483,54 @@ def check_window_attention(torch, wa, mask_fn, dev, report):
                                   **tot}
 
 
+# one kernel H call by launch group (the wrapper allocates, so every
+# device event is a launch of the kernel): the two projections and the
+# attention; "att" names H's attention launch in both of its designs
+H_GROUPS = (("GEMMs", "gemm"), ("attention", "att"))
+
+
+def library_msa(torch, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, heads):
+    """H's function as one PyTorch call, ``F.multi_head_attention_forward``
+    on [T, nW, C] tokens with ``in_proj_weight = Wqkv^T``, ``out_proj_weight
+    = Wproj^T`` and the float attn_mask [nW * heads, T, T] =
+    rel_bias[h] + mask[w % nW_img], summed outside the call (bf16, as SDPA
+    takes a float mask in the query's dtype).  Returns the call, ready to
+    time, and its output's [nW, T, C] view."""
+    import torch.nn.functional as F
+
+    nw, t, c = x.shape
+    full = rel_bias[None].expand(nw, heads, t, t)
+    if mask is not None:
+        full = full + mask.repeat(nw // mask.shape[0], 1, 1)[:, None]
+    attn_mask = full.reshape(nw * heads, t, t).to(x.dtype).contiguous()
+    q = x.transpose(0, 1)
+    w_in, w_out = wqkv.t().contiguous(), wproj.t().contiguous()
+    b_in, b_out = bqkv.to(x.dtype), bproj.to(x.dtype)
+
+    def call():
+        return F.multi_head_attention_forward(
+            q, q, q, c, heads, w_in, b_in, None, None, False, 0.0, w_out,
+            b_out, training=False, need_weights=False,
+            attn_mask=attn_mask)[0]
+
+    return call, lambda: call().transpose(0, 1)
+
+
 def check_fused_msa(torch, fm, mask_fn, dev, report):
     """Kernel H against its plain version at the four stage shapes of one
-    evaluation forward, unmasked and masked; sums per forward."""
+    evaluation forward, unmasked and masked; two calls on the same inputs
+    bit for bit; one call's device time by launch group (profiler); the
+    library yardstick ``F.multi_head_attention_forward``; sums per
+    forward."""
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
 
     def r(*shape, s=1.0):
         return torch.randn(*shape, device=dev, generator=g) * s
 
-    tot = {"ms": 0.0, "plain_ms": 0.0, "flop": 0.0, "bytes": 0.0}
-    worst, shapes = 0.0, {}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0,
+           "bytes": 0.0, "device_ms": 0.0, "gemm_device_ms": 0.0,
+           "attention_device_ms": 0.0}
+    worst, lib_worst, shapes, profiled = 0.0, 0.0, {}, True
     for side, c, heads, n_aligned, n_shifted in STAGES:
         nw = EVAL_IMAGES * (side // 7) ** 2
         # x, Wqkv, bqkv, Wproj, bproj (fan-in scale), rel_bias
@@ -1449,28 +1546,74 @@ def check_fused_msa(torch, fm, mask_fn, dev, report):
                 ref = fm.fused_msa_reference(*f32, mask, heads)
             plain = fm.fused_msa_reference(*bf, mask, heads)
             got = fm.fused_window_msa(*bf, mask, heads)
+            again = fm.fused_window_msa(*bf, mask, heads)
             torch.cuda.synchronize()
             name = f"{side}x{side}xC{c} {'masked' if masked else 'unmasked'}"
             err_k, err_p = hold_kernel(f"fused W-MSA {name}", got, plain, ref)
+            if not torch.equal(got, again):
+                raise AssertionError(f"fused W-MSA {name}: two calls on the "
+                                     "same inputs differ")
+            del again
             worst = max(worst, err_k)
+            lib_call, lib_out = library_msa(torch, *bf, mask, heads)
+            lib_err = (lib_out().float() - ref).abs().max().item()
+            lib_worst = max(lib_worst, lib_err)
             p, kk = time_pair(
                 torch, lambda: fm.fused_msa_reference(*bf, mask, heads),
                 lambda: fm.fused_window_msa(*bf, mask, heads))
+            lib_ms, _ = time_pair(torch, lib_call, lib_call)
+            prof = profile_call(
+                torch, lambda: (fm.fused_window_msa(*bf, mask, heads),
+                                torch.cuda.synchronize()),
+                H_GROUPS, ordered=True)
             tokens = nw * 49
             flop = 8 * tokens * c * c + nw * heads * 4 * 49 * 49 * 32
             nbytes = 2 * tokens * c * 2 + 4 * c * c * 2 + (
                 mask.numel() * 4 if masked else 0)
-            shapes[name] = {"ms": kk, "plain_ms": p,
-                            "calls_per_forward": count,
-                            "err_kernel_vs_f32": err_k,
-                            "err_bf16_plain_vs_f32": err_p,
-                            "kernel_tflops": flop / kk / 1e9}
-            log(f"  kernel {kk:.4f} ms ({flop / kk / 1e9:.1f} TFLOP/s), "
-                f"plain {p:.4f} ms ({count}x per forward)")
-            for key, val in (("ms", kk), ("plain_ms", p), ("flop", flop),
-                             ("bytes", nbytes)):
+            entry = {"ms": kk, "plain_ms": p, "library_ms": lib_ms,
+                     "library_max_abs_err": lib_err,
+                     "calls_per_forward": count, "err_kernel_vs_f32": err_k,
+                     "err_bf16_plain_vs_f32": err_p, "repeat_bit_equal": True,
+                     "kernel_tflops": flop / kk / 1e9}
+            sums = {"ms": kk, "plain_ms": p, "library_ms": lib_ms,
+                    "flop": flop, "bytes": nbytes}
+            if prof is None:
+                profiled = False
+                log(f"  {name}: profiler recorded no device event; device "
+                    "time not measured")
+            else:
+                gm = prof["groups_ms"].get("GEMMs", 0.0)
+                at = prof["groups_ms"].get("attention", 0.0)
+                entry.update({"device_ms": prof["device_ms"],
+                              "gemm_device_ms": gm,
+                              "attention_device_ms": at,
+                              "launches_ms": prof["launches_ms"]})
+                sums.update({"device_ms": prof["device_ms"],
+                             "gemm_device_ms": gm,
+                             "attention_device_ms": at})
+            shapes[name] = entry
+            log(f"  kernel {kk:.4f} ms ({flop / kk / 1e9:.1f} TFLOP/s)" + (
+                f", device {entry['device_ms']:.4f} (GEMMs "
+                f"{entry['gemm_device_ms']:.4f}, attention "
+                f"{entry['attention_device_ms']:.4f})"
+                if "device_ms" in entry else "")
+                + f", plain {p:.4f} ms, multi_head_attention_forward "
+                f"{lib_ms:.4f} ms (|lib-f32| {lib_err:.4g}; {count}x per "
+                "forward); two calls bit-equal")
+            for key, val in sums.items():
                 tot[key] += count * val
-    report["fused_msa"] = {"max_abs_err": worst, "shapes": shapes, **tot}
+    if not profiled:
+        for key in ("device_ms", "gemm_device_ms", "attention_device_ms"):
+            tot[key] = None
+    log(f"fused W-MSA per forward (12 calls): kernel {tot['ms']:.4f} ms" + (
+        f", device {tot['device_ms']:.4f} (GEMMs {tot['gemm_device_ms']:.4f}"
+        f", attention {tot['attention_device_ms']:.4f})" if profiled else "")
+        + f", plain {tot['plain_ms']:.4f}, multi_head_attention_forward "
+        f"{tot['library_ms']:.4f}, bound "
+        f"{bound(tot['flop'], tot['bytes'])[0]:.4f} ms")
+    report["fused_msa"] = {"max_abs_err": worst,
+                           "library_max_abs_err": lib_worst,
+                           "shapes": shapes, **tot}
 
 
 def check_merger_infer(torch, mi, dev, report):
@@ -1835,6 +1978,102 @@ def hold_call(name, got, plain, ref, rel_tol, rule=True):
     return err_k, rel, fail
 
 
+# one kernel L call by launch group: its own launches (down1_*), and the
+# wrapper's cast of the kernel to the tokens' dtype
+L_GROUPS = (("kernel L", "down1"),)
+
+
+def check_down1(torch, d1, dev, report):
+    """Kernel L (phase 15's part) at the refiner's DOWN1_VOLUMES volumes of
+    a 3-view batch-8 step, in bf16 and f32, against its plain version on
+    the same inputs (TF32 off): dx by REL_TOL and phase 4's rule, dW by
+    REL_TOL["f32"]; two calls on the same inputs bit for bit; ms (CUDA
+    events) of the kernel, the plain version and
+    ``aten.convolution_backward`` (TF32 off in f32); one call's device
+    time by launch (profiler).  Returns (errors by key, the worst errors,
+    the bf16 call's row for a step, the failures)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    n = DOWN1_VOLUMES
+    errs, worst, failed, by_dtype = {}, {"max_abs": 0.0, "rel_l2": 0.0}, [], {}
+    flop, nbytes = down1_work(n)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        x = torch.randn(n, 32, 32, 32, 1, device=dev, generator=g)
+        w = torch.randn(4, 4, 4, 1, 32, device=dev, generator=g) * 64 ** -0.5
+        dy = torch.randn(n, 33, 33, 33, 32, device=dev, generator=g)
+        xd, dyd = x.to(dtype), dy.to(dtype)
+        with exact_f32(torch):
+            ref = d1.down1_backward_reference(x, w, dy)
+            plain = d1.down1_backward_reference(xd, w, dyd)
+        got = d1.down1_backward(xd, w, dyd)
+        again = d1.down1_backward(xd, w, dyd)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not same:
+            failed.append(f"L {tag}: two launches on the same inputs differ")
+        del again
+        for key, k, tol, rule in (("dx", 0, REL_TOL[tag], True),
+                                  ("dW", 1, REL_TOL["f32"], False)):
+            err_k, rel, fail = hold_call(f"L {tag} {key}", got[k], plain[k],
+                                         ref[k], tol, rule)
+            errs[f"{tag} {key}"] = {"max_abs_vs_f32": err_k,
+                                    "rel_l2_vs_plain": rel}
+            if key == "dx":
+                worst["max_abs"] = max(worst["max_abs"], err_k)
+            worst["rel_l2"] = max(worst["rel_l2"], rel)
+            if fail:
+                failed.append(fail)
+        xn, dyn = xd.permute(0, 4, 1, 2, 3), dyd.permute(0, 4, 1, 2, 3)
+        wn = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+
+        def plain_l():
+            with exact_f32(torch):
+                d1.down1_backward_reference(xd, w, dyd)
+
+        def lib_l():  # TF32 off: the f32 yardstick computes in f32
+            with exact_f32(torch):
+                torch.ops.aten.convolution_backward(
+                    dyn, xn, wn, None, [1, 1, 1], [2, 2, 2], [1, 1, 1],
+                    False, [0, 0, 0], 1, [True, True, False])
+
+        pl, kl = time_pair(torch, plain_l,
+                           lambda: d1.down1_backward(xd, w, dyd))
+        ll, _ = time_pair(torch, lib_l, lib_l)
+        prof = profile_call(torch, lambda: (d1.down1_backward(xd, w, dyd),
+                                            torch.cuda.synchronize()),
+                            L_GROUPS, ordered=True)
+        b = (bound(flop, nbytes) if tag == "bf16"
+             else bound(flop, 2 * nbytes - 2048 * 2.0, PEAK_F32))
+        entry = {"ms": kl, "plain_ms": pl, "library_ms": ll, "bound": b,
+                 "repeat_bit_equal": same}
+        if prof is None:
+            log(f"  L {tag}: profiler recorded no device event; device time "
+                "not measured")
+        else:
+            entry.update({"device_ms": prof["device_ms"],
+                          "kernel_device_ms": prof["groups_ms"].get(
+                              "kernel L", 0.0),
+                          "launches_ms": prof["launches_ms"]})
+        by_dtype[tag] = entry
+        log(f"  L {tag} at {n} volumes: kernel {kl:.4f} ms" + (
+            f" (device {entry['device_ms']:.4f}: " + ", ".join(
+                f"{nm} {ms_:.4f}" for nm, ms_ in entry["launches_ms"]) + ")"
+            if "device_ms" in entry else "")
+            + f", plain {pl:.4f}, convolution_backward {ll:.4f}, bound "
+            f"{b[0]:.4f} ({b[1]})")
+    log("L: " + ", ".join(
+        f"{key} {e['max_abs_vs_f32']:.4g}/{e['rel_l2_vs_plain']:.3g}"
+        for key, e in errs.items()) + " (max-abs vs f32 plain / relative L2 "
+        "vs plain)")
+    bf = by_dtype["bf16"]
+    row = {"ms": bf["ms"], "plain_ms": bf["plain_ms"],
+           "library_ms": bf["library_ms"], "bound": bf["bound"], "calls": 1}
+    if "device_ms" in bf:
+        row["device_ms"] = bf["device_ms"]
+    report["down1"] = {"errors": errs, "worst": worst, "by_dtype": by_dtype}
+    return errs, worst, row, failed
+
+
 def check_train_kernels(torch, bc, d1, dev, report, only_j=False):
     """Phase 15: kernels J and K (one merger conv, forward and weight
     gradient) at the 24 volumes of a 3-view batch-8 step, every (ci, co)
@@ -1848,7 +2087,7 @@ def check_train_kernels(torch, bc, d1, dev, report, only_j=False):
     def r(*shape, s=1.0):
         return torch.randn(*shape, device=dev, generator=g) * s
 
-    v, n = TRAIN_VOLUMES, DOWN1_VOLUMES
+    v = TRAIN_VOLUMES
     out = {"J": {}, "K": {}, "L": {}}
     worst = {k: {"max_abs": 0.0, "rel_l2": 0.0} for k in out}
     failed = []
@@ -1956,44 +2195,13 @@ def check_train_kernels(torch, bc, d1, dev, report, only_j=False):
                 + f", plain {pj:.4f}, F.conv3d {lj:.4f}" + (
                     f"; K {kk:.4f} ms, plain {pk:.4f}, conv3d_weight "
                     f"{lk:.4f}" if kk is not None else ""))
-        if only_j:
-            continue
-        x = r(n, 32, 32, 32, 1)
-        w = r(4, 4, 4, 1, 32, s=64 ** -0.5)
-        dy = r(n, 33, 33, 33, 32)
-        xd, dyd = x.to(dtype), dy.to(dtype)
-        with exact_f32(torch):
-            ref = d1.down1_backward_reference(x, w, dy)
-            plain = d1.down1_backward_reference(xd, w, dyd)
-        got = d1.down1_backward(xd, w, dyd)
-        again = d1.down1_backward(xd, w, dyd)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            failed.append(f"L {tag}: two launches on the same inputs differ")
-        note("L", f"{tag} dx", *hold_call(f"L {tag} dx", got[0], plain[0],
-                                         ref[0], tol))
-        note("L", f"{tag} dW", *hold_call(f"L {tag} dW", got[1], plain[1],
-                                         ref[1], REL_TOL["f32"], rule=False))
-        if dtype == torch.bfloat16:
-            xn, dyn = xd.permute(0, 4, 1, 2, 3), dyd.permute(0, 4, 1, 2, 3)
-            wn = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
-
-            def plain_l():
-                with exact_f32(torch):
-                    d1.down1_backward_reference(xd, w, dyd)
-
-            def lib_l():
-                torch.ops.aten.convolution_backward(
-                    dyn, xn, wn, None, [1, 1, 1], [2, 2, 2], [1, 1, 1],
-                    False, [0, 0, 0], 1, [True, True, False])
-
-            pl, kl = time_pair(torch, plain_l,
-                               lambda: d1.down1_backward(xd, w, dyd))
-            ll, _ = time_pair(torch, lib_l, lib_l)
-            times[("L",)] = (kl, pl, ll)
-            log(f"  L at {n} volumes: kernel {kl:.4f} ms, plain {pl:.4f}, "
-                f"convolution_backward {ll:.4f}")
-    for kernel, errs in ((k_, e) for k_, e in out.items() if e):
+    if not only_j:
+        errs_l, worst["L"], row_l, failed_l = check_down1(torch, d1, dev,
+                                                          report)
+        out["L"] = errs_l
+        failed += failed_l
+    for kernel, errs in ((k_, e) for k_, e in out.items()
+                         if e and k_ != "L"):  # check_down1 logs L's
         log(f"{kernel}: " + ", ".join(
             f"{key} {e['max_abs_vs_f32']:.4g}/{e['rel_l2_vs_plain']:.3g}"
             for key, e in errs.items()) + " (max-abs vs f32 plain / "
@@ -2028,16 +2236,14 @@ def check_train_kernels(torch, bc, d1, dev, report, only_j=False):
         rows["J"]["padded_tflops"] = (padded / rows["J"]["conv_device_ms"]
                                       / 1e9)
     if not only_j:
-        kl, pl, ll = times[("L",)]
-        rows["L"] = {"ms": kl, "plain_ms": pl, "library_ms": ll,
-                     "bound": bound(*down1_work(n)), "calls": 1}
+        rows["L"] = row_l
     for kernel, row in rows.items():
         log(f"{kernel} per step ({row['calls']} calls): kernel "
             f"{row['ms']:.4f} ms" + (
                 f" (device {row['device_ms']:.4f}, convs "
                 f"{row['conv_device_ms']:.4f}: {row['own_tflops']:.1f} "
                 f"TFLOP/s own, {row['padded_tflops']:.1f} padded)"
-                if "device_ms" in row else "")
+                if "conv_device_ms" in row else "")
             + f", plain {row['plain_ms']:.4f}, library "
             f"{row['library_ms']:.4f}, bound {row['bound'][0]:.4f} "
             f"({row['bound'][1]})")
@@ -2198,16 +2404,11 @@ def gradient_repeats(torch, dev, flags, batch):
     step's loss from one state on one batch and one dropout seed: the
     parameters whose gradients differ in any bit, in registration order,
     and the first module that holds one (None when all repeat)."""
-    from swinvox_tpu_torch.config import default_config
     from swinvox_tpu_torch.train.state import create_train_state
     from swinvox_tpu_torch.train.steps import gradients, loss_and_grads
 
-    cfg = default_config()
-    cfg.NETWORK.INIT_SCHEME = "standard"
-    for key, val in flags.items():
-        setattr(cfg.NETWORK, key, val)
-    state, _ = create_train_state(cfg, torch.Generator().manual_seed(SEED),
-                                  4, dev)
+    state, _ = create_train_state(flag_config(flags),
+                                  torch.Generator().manual_seed(SEED), 4, dev)
     rng = np.random.default_rng(SEED)
     images = torch.from_numpy(rng.random(
         (batch, TRAIN_VIEWS, 224, 224, 3), np.float32)).to(dev)
@@ -2640,10 +2841,10 @@ def main(argv) -> int:
     import torch
 
     modes = {"--eval-only": "eval", "--merger-stack": "merger",
-             "--merger-conv": "merger_conv"}
+             "--merger-conv": "merger_conv", "--wmsa-down1": "wmsa_down1"}
     if argv and (len(argv) > 1 or argv[0] not in modes):
         print(f"usage: chip_smoke.py [--eval-only | --merger-stack | "
-              f"--merger-conv], not {argv}", file=sys.stderr)
+              f"--merger-conv | --wmsa-down1], not {argv}", file=sys.stderr)
         return 2
     eval_only = argv == ["--eval-only"]
     if not torch.cuda.is_available():
@@ -2697,8 +2898,10 @@ def main(argv) -> int:
                        report)
         elif argv == ["--merger-stack"]:
             merger_stack_phase(torch, dev, card, report)
-        else:
+        elif argv == ["--merger-conv"]:
             merger_conv_phase(torch, dev, card, report)
+        else:
+            wmsa_down1_phase(torch, dev, card, report)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / f"chip_smoke_{modes[argv[0]]}.json").write_text(
@@ -3149,12 +3352,12 @@ def main(argv) -> int:
          bound(report["window_attention"]["flop"],
                report["window_attention"]["bytes"]),
          report["window_attention"]["library_ms"]),
-        ("fused_window_msa", "swinvox_tpu_torch/csrc/fused_msa.cu",
+        ("fused_window_msa", "swinvox_tpu_torch/csrc/swin_block.cu",
          "swinvox_tpu/ops/pallas_fused_msa.py:31",
          ev_n["fused_msa_forward"], report["fused_msa"]["max_abs_err"], None,
          report["fused_msa"]["ms"], report["fused_msa"]["plain_ms"],
          bound(report["fused_msa"]["flop"], report["fused_msa"]["bytes"]),
-         None),
+         report["fused_msa"]["library_ms"]),
         ("merger_view_weights", "swinvox_tpu_torch/csrc/merger_stack.cu",
          "swinvox_tpu/ops/pallas_merger.py:91",
          ev_n["merger_view_weights"], report["merger_infer"]["max_abs_err"],

@@ -109,7 +109,7 @@ class NetworkConfig:
     CROSS_ATT_NUM_HEADS: int = 4
     # "bfloat16" or "float32"; parameters stay float32 either way
     COMPUTE_DTYPE: str = "bfloat16"
-    # kernel H (csrc/fused_msa.cu) for W-MSA at inference when the
+    # kernel H (csrc/swin_block.cu) for W-MSA at inference when the
     # Swin-block kernel is off
     USE_PALLAS_WINDOW_ATTENTION: bool = True
     # kernel I (csrc/merger_stack.cu) for the merger stack at inference

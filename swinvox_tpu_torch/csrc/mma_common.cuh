@@ -1,6 +1,6 @@
-// Tensor-core building blocks shared by kernel K (merger_conv.cu) and
-// kernel D (swin_block_train.cu), written so kernels B, C and H can take
-// the GEMM core in later work:
+// Tensor-core building blocks shared by kernels B, C and H
+// (swin_block.cu), D (swin_block_train.cu), K (merger_conv.cu), L
+// (down1.cu) and the merger convs (merger_mma.cuh):
 //
 //   * PTX wrappers: cp.async (16 bytes, zero-fill past the edge),
 //     ldmatrix (x2/x4, plain and transposed) and mma.sync m16n8k16 bf16

@@ -1,5 +1,6 @@
 // Whole Swin block on aligned window-major tokens: inference (kernel B)
-// and the training forward (kernel C).
+// and the training forward (kernel C); and, on three of B's launches, the
+// fused W-MSA (kernel H, at the end of this note).
 //
 // Kernel B replaces the TPU kernel swinvox_tpu/ops/pallas_swin_block.py:
 // _swin_block_kernel (through `fused_swin_block`).  For x [nW, T, C] bf16
@@ -59,6 +60,28 @@
 // with quad shuffles, rounds P to bf16 straight into the A fragments of
 // P V, and the next window's q, k, v arrive by cp.async while one
 // computes.  Neither wgmma nor TMA yet.
+//
+// Kernel H (replaces swinvox_tpu/ops/pallas_fused_msa.py:_fused_kernel
+// through `fused_window_msa`; the eval-wmsa configuration's W-MSA,
+// USE_PALLAS_WINDOW_ATTENTION with USE_PALLAS_SWIN_BLOCK off) is B's first
+// three stages without LN1 and the residual, with H's rounding points:
+//
+//   swin_fwd_gemm<QKV>   x Wqkv + bqkv -> bf16 qkv
+//   swin_fwd_attn        the map at shift 0 (the identity), mask[w %
+//                        nW_img]: softmax_f32(q k^T * scale + rel_bias
+//                        (+ mask)) rounded to bf16 before @ v -> bf16 ctx
+//   swin_fwd_gemm<QKV>   ctx Wproj + bproj -> bf16 out (the QKV epilogue)
+//
+// It is defined here, beside B, so the three launches are B's own
+// instances and B's and C's code is untouched.  Work at the 12 calls of a
+// 24-image forward: 8 * tokens * C^2 FLOP in the projections (66.6
+// GFLOP) and 6.7 GFLOP of attention (0.074 ms at the bf16 peak) against
+// ~154 MB of x, out, weights and masks (0.046 ms at 3.35 TB/s): bound by
+// operations, which B's pipelined GEMM core is built for; its first
+// design (wmma on 64 x 64 tiles from plain loads, the scores staged
+// through shared memory) ran at 2-4% of that bound.  qkv and ctx still
+// make a round trip through device memory (~0.55 GB for the 12 calls,
+// ~0.16 ms at 3.35 TB/s); keeping them on chip is later work.
 //
 // The C entry points return the first nonzero cudaGetLastError() of their
 // launches.
@@ -595,6 +618,29 @@ int run_block_c(int C, const void* x, const void* ln1s, const void* ln1b,
 #undef SWIN_BLOCK_ARGS
 }
 
+// Kernel H, the fused W-MSA: B's QKV product, B's attention over aligned
+// windows (the identity map) and the output projection through the QKV
+// epilogue, bf16(ctx Wproj + bproj).
+int run_msa(const bf16* x, const bf16* wqkv, const float* bqkv,
+            const bf16* wproj, const float* bproj, const float* rel_bias,
+            const float* mask, int nw_img, bf16* out, bf16* qkv, bf16* ctx,
+            int n_windows, int T, int C, int heads, float scale,
+            cudaStream_t s) {
+  const int M = n_windows * T;
+  FwdGemm g{x, wqkv, bqkv, M, 3 * C, C, nullptr, nullptr, T, qkv, nullptr};
+  int err;
+  if ((err = gemm<QKV>(g, s))) return err;
+  int groups = ATT_TARGET_BLOCKS / heads;
+  if (groups < 1) groups = 1;
+  if (groups > n_windows) groups = n_windows;
+  swin_fwd_attn_kernel<<<dim3(groups, heads), ATT_THREADS, 0, s>>>(
+      qkv, rel_bias, mask, nw_img, n_windows, T, C, scale,
+      WinMap{1, 1, 0, 0}, ctx);
+  if ((err = (int)cudaGetLastError())) return err;
+  g = FwdGemm{ctx, wproj, bproj, M, C, C, nullptr, nullptr, T, out, nullptr};
+  return gemm<QKV>(g, s);
+}
+
 }  // namespace
 
 // Kernel B.  x/out [n_windows*tokens, C] bf16, aligned windows of an
@@ -644,4 +690,32 @@ extern "C" int swinvox_swin_block_train_fwd(
                      h1, qkv, ctx, x2, h2, hidden, n_windows, tokens, heads,
                      WinMap{nwh, nww, window, shift}, scale, eps, tr,
                      static_cast<cudaStream_t>(stream));
+}
+
+// Kernel H.  x/out [n_windows*tokens, C] bf16, windows image-major;
+// wqkv [C, 3C] and wproj [C, C] bf16 row-major [in, out]; bqkv, bproj,
+// rel_bias [heads, T, T] and mask [nw_img, T, T] (or null) f32 (the mask
+// of window w is mask[w % nw_img]).  Scratch from the caller: qkv [., 3C]
+// and ctx [., C] bf16.  Every pointer 16-byte aligned; C is 96, 192, 384
+// or 768, C / heads == 32, tokens <= 64.
+extern "C" int swinvox_fused_msa(const void* x, const void* wqkv,
+                                 const void* bqkv, const void* wproj,
+                                 const void* bproj, const void* rel_bias,
+                                 const void* mask, int nw_img, void* out,
+                                 void* qkv, void* ctx, long long n_windows,
+                                 int tokens, int channels, int heads,
+                                 float scale, void* stream) {
+  if (n_windows * tokens == 0) return 0;
+  if (tokens > TMAX || n_windows * tokens >= (1LL << 31) ||
+      channels != heads * HD ||
+      (channels != 96 && channels != 192 && channels != 384 &&
+       channels != 768))
+    return (int)cudaErrorInvalidValue;
+  return run_msa(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const bf16*>(wproj),
+      static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),
+      static_cast<const float*>(mask), nw_img, static_cast<bf16*>(out),
+      static_cast<bf16*>(qkv), static_cast<bf16*>(ctx), (int)n_windows,
+      tokens, channels, heads, scale, static_cast<cudaStream_t>(stream));
 }

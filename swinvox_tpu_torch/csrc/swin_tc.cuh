@@ -1,6 +1,6 @@
-// Device code shared by the Swin block's forward (kernels B and C,
-// swin_block.cu) and backward (kernel D, swin_block_train.cu), both on
-// the tensor-core blocks of mma_common.cuh:
+// Device code shared by the Swin block's forward (kernels B and C, and
+// the fused W-MSA, kernel H, swin_block.cu) and backward (kernel D,
+// swin_block_train.cu), both on the tensor-core blocks of mma_common.cuh:
 //
 //   * the shifted-window map: a stage's tokens stay in the aligned
 //     window-major layout, and a shifted block's attention reads q, k, v

@@ -14,10 +14,12 @@ DHWIO kernel [4, 4, 4, 1, 32] -> [N, 33, 33, 33, 32] channels-last.
     which the refiner casts to its compute dtype first (so, in bf16, dW is
     rounded to bf16 and widened, as in JAX).
 
-On CUDA tensors ``down1_backward`` launches kernel L (``csrc/down1.cu``)
-and counts it; on CPU tensors it runs ``down1_backward_reference``, the
-same function in plain PyTorch (one float32 product per tap).  Any N
-works (the TPU kernel pads to 16 volumes for its layout).
+On CUDA tensors ``down1_backward`` launches kernel L (``csrc/down1.cu``:
+in bf16 both gradients on the tensor cores from one staged copy of dy, in
+f32 on the CUDA cores) and counts it; on CPU tensors it runs
+``down1_backward_reference``, the same function in plain PyTorch (one
+float32 product per tap).  Any N works (the TPU kernel pads to 16 volumes
+for its layout).
 """
 
 from __future__ import annotations
@@ -87,6 +89,9 @@ def down1_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
     x = x.contiguous()
     wk = w.detach().to(x.dtype).contiguous()
     dy = dy.to(x.dtype).contiguous()
+    if any(a.data_ptr() % 16 for a in (x, wk, dy)):
+        # the bf16 route reads dy with cp.async, 16 bytes at a time
+        raise ValueError(f"{what}: x, w and dy must be 16-byte aligned")
     dx = torch.empty_like(x)
     dw = torch.empty(K, K, K, 1, C, dtype=torch.float32, device=x.device)
     ws = lib.swinvox_down1_bwd_workspace(n)

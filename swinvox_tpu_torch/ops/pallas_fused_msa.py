@@ -9,8 +9,12 @@ Counterpart of ``fused_window_msa`` in ``swinvox_tpu/ops/pallas_fused_msa.py``
       v's dtype, @ v with float32 sums, rounded--> ctx [nW, T, C]
     --(ctx @ Wproj + bproj, float32 sums)--> out, in x's dtype
 
-On a CUDA tensor ``fused_window_msa`` launches ``csrc/fused_msa.cu``
-(bf16, head_dim 32, at most 64 tokens) under an autograd function whose
+On a CUDA tensor ``fused_window_msa`` launches kernel H,
+``swinvox_fused_msa`` in ``csrc/swin_block.cu`` (kernel B's QKV product,
+its attention over aligned windows and the same product on ctx Wproj;
+bf16, C in Swin-T's 96, 192, 384, 768, head_dim 32, at most 64 tokens:
+the JAX kernel takes any such C, every model path runs these four) under
+an autograd function whose
 backward recomputes through the plain version, as the JAX custom VJP
 recomputes in XLA from x and the weights; on a CPU tensor it runs
 ``fused_msa_reference``, the same function in plain PyTorch
@@ -31,6 +35,9 @@ import torch
 from swinvox_tpu_torch.kernels import build
 from swinvox_tpu_torch.models.layers import mm_f32
 from swinvox_tpu_torch.ops.window_attention import window_attention_xla
+
+# the widths kernel H takes: Swin-T's four stages (its N tile is 96)
+CHANNELS = (96, 192, 384, 768)
 
 
 def fused_msa_reference(
@@ -56,10 +63,10 @@ def _check(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, num_heads) -> None:
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_window_msa: the kernel takes bfloat16 "
                          f"tokens, got {x.dtype}")
-    if c % 32 or c % num_heads or c // num_heads != 32 or t > 64:
-        raise ValueError(f"fused_window_msa: the kernel takes head_dim 32, "
-                         f"C % 32 == 0 and at most 64 tokens, got C={c}, "
-                         f"heads={num_heads}, T={t}")
+    if c not in CHANNELS or c != 32 * num_heads or t > 64:
+        raise ValueError(f"fused_window_msa: the kernel takes C in "
+                         f"{CHANNELS}, head_dim 32 and at most 64 tokens, "
+                         f"got C={c}, heads={num_heads}, T={t}")
     want = {
         "wqkv": (wqkv, (c, 3 * c), torch.bfloat16),
         "wproj": (wproj, (c, c), torch.bfloat16),
