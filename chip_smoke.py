@@ -7,6 +7,7 @@ evaluation entry point and training entry point on one NVIDIA GPU.
     python3 chip_smoke.py --merger-stack  # phases 1, 2, 9 and two steps
     python3 chip_smoke.py --merger-conv   # phases 1, 2, I, J and two runs
     python3 chip_smoke.py --wmsa-down1    # phases 1, 2, H, L and two runs
+    python3 chip_smoke.py --rewindow-wattn  # phases 1, 2, A, G and the step
 
 ``--eval-only`` re-reads the evaluation gates alone, e.g. on a copy of
 the sources with a fault planted in a kernel, in a third of the time.
@@ -23,7 +24,19 @@ check of phase 13 and kernel L's part of phase 15 (each with its device
 time by launch group or launch beside its events time, its library
 yardstick and two calls bit for bit), then the profiler's device time
 of one ``train-slab`` step (L 1) and one ``eval-wmsa`` forward (H 12),
-the readings of kernels H and L alone.
+the readings of kernels H and L alone.  ``--rewindow-wattn`` runs kernel
+A's check of phase 3 and kernel G's of phase 13, each with the
+profiler's device time of a forward's calls (A's 7, G's 12) beside its
+events time and its library yardstick (``index_select``, SDPA), then
+``gradient_repeats`` in the default mode for the default flags and for
+``train-slab``'s (where a gradient differs, again under each global
+mode of DET_MODES, which names the setting that makes it repeat), and
+the batch-32 1-view step run in turns as it is and under
+``torch.use_deterministic_algorithms(True)`` with cuDNN's deterministic
+algorithms: wall medians, and one profiled step of each by op (self host
+and device ms, calls) and by kernel, with the ops whose time grows; it
+sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
+mode requires.
 
 It imports torch and swinvox_tpu_torch only.  Phases (any failure
 raises, so the exit code is nonzero):
@@ -31,7 +44,9 @@ raises, so the exit code is nonzero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels from ``swinvox_tpu_torch/csrc`` with nvcc (timed);
   3. kernel A (rewindow) against its plain version at every shape the JAX
-     chain relayouts at serving batch 32, both signs: exact.  No model
+     chain relayouts at serving batch 32, both signs, forward and
+     backward: exact; ms of a forward's 7 calls by events and their
+     device ms (profiler).  No model
      path launches A: the port's chain stays in the aligned layout, and a
      shifted block's kernels (B, C, D) read and write its windows through
      the roll's map;
@@ -106,7 +121,8 @@ raises, so the exit code is nonzero):
      images: TEST.EVAL_BATCH_SIZE 8 x 3 views), masked and unmasked, and
      kernel I (inference merger) at 24 volumes, by phase 4's rule (max-abs
      error against the f32 plain version <= 2 x the bf16 plain version's
-     + 1e-2); ms per forward beside the plain's, and the library
+     + 1e-2); ms per forward beside the plain's (G's 12 calls also by
+     their device ms, profiler), and the library
      yardsticks, for G ``F.scaled_dot_product_attention`` with the bias
      and mask as ``attn_mask``, for H ``F.multi_head_attention_forward``
      with the bias and mask summed into a float ``attn_mask``; H and I
@@ -169,23 +185,18 @@ raises, so the exit code is nonzero):
      its own inputs and output gradient (phase 9's rule).
      Then ``train-slab`` resumes from its epoch-1 checkpoint (its
      epoch_idx set to 1: the JAX package's resume starts again at the
-     epoch a checkpoint was saved after) and runs epoch 2 again: its
-     batch losses within RESUME_LOSS_RTOL and its epoch-2 weights and
-     BatchNorm statistics within RESUME_STATE_RTOL (per module) of the
-     uninterrupted run's (the Adam moments are reported: see
-     RESUME_STATE_RTOL), and its epoch-2 checkpoint read back by the
-     port's ``load_checkpoint`` into a TrainState exactly.  Then the
-     same pair again (``train-slab`` uninterrupted, and resumed at epoch
-     2) with every train step under ``torch.use_deterministic_algorithms
-     (True)`` (no ``warn_only``: an op with no deterministic
-     implementation raises and names itself) and cuDNN's deterministic
-     algorithms (CUBLAS_WORKSPACE_CONFIG=:4096:8 is set before cuBLAS
-     starts): every module's Adam moments within DET_MOMENTS_RTOL of that
-     uninterrupted run's, and the median step wall beside the default
-     runs'.  The bisection beside it: two deterministic forward-backward
-     passes of one full-width state on one batch, every parameter's
-     gradient compared bit for bit; the first module that differs is
-     reported (and then the moments are reported, not held).  Last, the
+     epoch a checkpoint was saved after) and runs epoch 2 again, with the
+     default train step (which repeats its own bits): its batch losses
+     within RESUME_LOSS_RTOL, its epoch-2 weights and BatchNorm
+     statistics within RESUME_STATE_RTOL and every module's Adam moments
+     within DET_MOMENTS_RTOL (per module, relative L2) of the
+     uninterrupted run's, and its epoch-2 checkpoint read back by the
+     port's ``load_checkpoint`` into a TrainState exactly.  The bisection
+     beside it: two default forward-backward passes of one full-width
+     state on one batch (``train-slab``'s flags), every parameter's
+     gradient compared bit for bit; none may differ, and the first
+     module that does is named.  CUBLAS_WORKSPACE_CONFIG is not set, as
+     in a user's run.  Last, the
      quickstart (``cli/quickstart.py``: runner train mode, one epoch with
      validation) at COMPUTE_DTYPE float32 with the default flags: the
      resolved kernel routes (all plain) and the launches (none).  Step
@@ -195,10 +206,10 @@ raises, so the exit code is nonzero):
 Phases 14 and 16 write their fixtures and checkpoints under a fresh
 temporary directory outside the repo (``tempfile.mkdtemp``), removed at
 the end even on failure; the script leaves nothing in the repo but
-``chiprun_out/chip_smoke.json``.  Phase 16 writes ten full checkpoints
-of about 1 GB (two per uninterrupted run at SAVE_FREQ 1, one per resumed
-epoch) and the resume copies, at most two on disk at once: each run's
-are deleted before the next.
+``chiprun_out/chip_smoke.json``.  Phase 16 writes seven full checkpoints
+of about 1 GB (two per uninterrupted run at SAVE_FREQ 1, one for the
+resumed epoch) and the resume copy, at most two on disk at once: each
+run's are deleted before the next.
 
 Kernel G is reached only through ``window_attention(use_pallas=True)``,
 as its TPU kernel is in the JAX package: no model path launches it, so
@@ -309,18 +320,18 @@ TRAIN_CONFIGS = {  # (batch, NETWORK flags beyond the defaults)
                        "REFINER_DOWN1_PALLAS": True}),
     "train-default": (16, {}),
 }
-# train-slab resumed at epoch 2 against its uninterrupted run (H100, 700
-# W, two runs): the batch losses differ by at most 2.8e-4 and 6.6e-4
-# relative (the first is equal: the forward is deterministic, cuDNN's
-# and the scatters' backward is not), the epoch-2 weights and BatchNorm
-# statistics by at most 7.8e-4 relative L2 per module.  The Adam moments
-# are reported, not held: the encoder's gradients move by O(1) under that
-# backward's run-to-run noise (ROADMAP.md "Faults", bf16 gradients), so
-# its first moment read 0.85 relative L2 apart
+# train-slab resumed at epoch 2 against its uninterrupted run: the batch
+# losses within RESUME_LOSS_RTOL (relative), the epoch-2 weights and
+# BatchNorm statistics within RESUME_STATE_RTOL (relative L2 per module),
+# and every module's Adam moments within DET_MOMENTS_RTOL.  The train
+# step repeats its own bits (cuDNN's deterministic algorithms, the bias
+# table's fixed-order gradient), so all three read 0 on an H100; before
+# it did, a nondeterministic conv backward moved the encoder's first
+# moment 0.85 relative L2 apart while losses and weights stayed within
+# 6.6e-4 and 7.8e-4, so the moments are the reading that catches a step
+# that stops repeating
 RESUME_LOSS_RTOL = 5e-3
 RESUME_STATE_RTOL = 1e-2
-# the deterministic pair: every module's Adam moments after the resumed
-# epoch 2 against the uninterrupted run's (relative L2)
 DET_MOMENTS_RTOL = 1e-6
 EVAL_CONFIGS = {  # NETWORK flags beyond the defaults
     "default": {},
@@ -774,9 +785,13 @@ def train_launches(cfg, batch, views):
 
 
 def check_rewindow(torch, rw, dev, report):
+    """Kernel A against its plain version at every shape and sign of the
+    JAX chain's serving forward (batch 32), forward and backward, exactly;
+    ms per forward (the 7 calls by CUDA events) and the device ms of those
+    7 calls (profiler)."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     ms = plain_ms = worst = 0.0
-    shapes = {}
+    shapes, calls = {}, []
     for side, c, sign, count in REWINDOW_CALLS:
         nw = side // 7
         x = torch.randn(BATCH * nw * nw, 49, c, device=dev, generator=g)
@@ -789,6 +804,16 @@ def check_rewindow(torch, rw, dev, report):
             if not torch.equal(got, ref):
                 raise AssertionError(f"rewindow {side}^2 C{c} sign {s}: "
                                      "kernel != plain")
+            # the backward is the inverse permutation, the kernel again
+            xg = x.detach().requires_grad_()
+            xr = x.detach().requires_grad_()
+            dy = torch.randn(x.shape, device=dev, generator=g).bfloat16()
+            rw.rewindow(xg, nw, nw, 7, 3, s).backward(dy)
+            rw.rewindow_reference(xr, nw, nw, 7, 3, s).backward(dy)
+            if not torch.equal(xg.grad, xr.grad):
+                raise AssertionError(f"rewindow {side}^2 C{c} sign {s}: "
+                                     "kernel backward != plain")
+        calls.append((x, nw, sign, count))
         p, k = time_pair(torch, lambda: rw.rewindow_reference(
             x, nw, nw, 7, 3, sign), lambda: rw.rewindow(x, nw, nw, 7, 3, sign))
         shapes[f"{side}x{side}xC{c} sign{sign:+d}"] = {
@@ -796,10 +821,25 @@ def check_rewindow(torch, rw, dev, report):
             "bytes_moved": 2 * x.numel() * x.element_size()}
         ms += count * k
         plain_ms += count * p
-        log(f"rewindow {side}^2 C{c} sign {sign:+d}: exact; kernel {k:.4f} ms"
-            f", plain {p:.4f} ms ({count}x per forward)")
+        log(f"rewindow {side}^2 C{c} sign {sign:+d}: exact, forward and "
+            f"backward; kernel {k:.4f} ms, plain {p:.4f} ms ({count}x per "
+            "forward)")
+
+    def forward_calls():
+        for x, nw, sign, count in calls:
+            for _ in range(count):
+                rw.rewindow(x, nw, nw, 7, 3, sign)
+        torch.cuda.synchronize()
+
+    prof = profile_call(torch, forward_calls, ordered=True)
+    device = None if prof is None else prof["device_ms"]
+    log(f"rewindow, the 7 calls of a forward: {ms:.4f} ms by events, "
+        f"device {'not measured' if device is None else f'{device:.4f}'} ms"
+        + ("" if prof is None else " (" + ", ".join(
+            f"{n} {t:.4f}" for n, t in prof["launches_ms"]) + ")"))
     report["rewindow"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                          "shapes": shapes}
+                          "device_ms": device, "shapes": shapes,
+                          "profile": prof}
 
 
 def check_swin_block(torch, blk, mask_fn, dev, report):
@@ -1395,9 +1435,7 @@ def library_rewindow(torch, rw, dev):
         nw = side // 7
         x = torch.randn(BATCH * nw * nw, 49, c, device=dev,
                         generator=g).bfloat16()
-        idx = torch.arange(x.shape[0] * 49, device=dev, dtype=torch.float32)
-        perm = rw.rewindow_reference(idx.view(-1, 49, 1), nw, nw, 7, 3,
-                                     sign).reshape(-1).long()
+        perm = rw.source_rows(x.shape[0], nw, nw, 7, 3, sign).to(dev)
         flat = x.view(-1, c)
         if not torch.equal(torch.index_select(flat, 0, perm).view_as(x),
                            rw.rewindow(x, nw, nw, 7, 3, sign)):
@@ -1430,7 +1468,7 @@ def check_window_attention(torch, wa, mask_fn, dev, report):
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0,
            "bytes": 0.0}
-    worst, shapes = 0.0, {}
+    worst, shapes, calls = 0.0, {}, []
     for side, c, heads, n_aligned, n_shifted in STAGES:
         nw = EVAL_IMAGES * (side // 7) ** 2
         q, k, v = (torch.randn(nw, heads, 49, 32, device=dev, generator=g)
@@ -1449,6 +1487,8 @@ def check_window_attention(torch, wa, mask_fn, dev, report):
             err_k, err_p = hold_kernel(f"window attention {name}", got,
                                        plain, ref)
             worst = max(worst, err_k)
+            if count:
+                calls.append((bf, bias, mask, count))
             p, kk = time_pair(
                 torch, lambda: wa.window_attention_reference(*bf, bias, mask),
                 lambda: wa.window_attention_pallas(*bf, bias, mask))
@@ -1479,7 +1519,22 @@ def check_window_attention(torch, wa, mask_fn, dev, report):
                              ("library_ms", lib_ms), ("flop", flop),
                              ("bytes", nbytes)):
                 tot[key] += count * val
+
+    def forward_calls():
+        for bf, bias, mask, count in calls:
+            for _ in range(count):
+                wa.window_attention_pallas(*bf, bias, mask)
+        torch.cuda.synchronize()
+
+    prof = profile_call(torch, forward_calls, ordered=True)
+    device = None if prof is None else prof["device_ms"]
+    log(f"window attention, the 12 calls of a forward: {tot['ms']:.4f} ms "
+        f"by events, device "
+        f"{'not measured' if device is None else f'{device:.4f}'} ms, bound "
+        f"{bound(tot['flop'], tot['bytes'])[0]:.4f} ms, SDPA "
+        f"{tot['library_ms']:.4f} ms")
     report["window_attention"] = {"max_abs_err": worst, "shapes": shapes,
+                                  "device_ms": device, "profile": prof,
                                   **tot}
 
 
@@ -2381,29 +2436,61 @@ def want_train_launches(cfg, batch, flags, steps, val_forwards):
 
 
 @contextlib.contextmanager
-def deterministic_algorithms(torch):
+def deterministic_algorithms(torch, fill=True):
     """Holds ``torch.use_deterministic_algorithms(True)`` (no
     ``warn_only``: an op with no deterministic implementation raises and
     names itself) and cuDNN's deterministic algorithms (benchmark off)
-    over a block, then restores them."""
+    over a block, then restores them.  ``fill=False`` turns off the NaN
+    fill of every new tensor that the mode adds
+    (``torch.utils.deterministic.fill_uninitialized_memory``)."""
+    import torch.utils.deterministic as det
+
     cudnn = torch.backends.cudnn
     prev = (torch.are_deterministic_algorithms_enabled(),
             torch.is_deterministic_algorithms_warn_only_enabled(),
-            cudnn.deterministic, cudnn.benchmark)
+            cudnn.deterministic, cudnn.benchmark,
+            det.fill_uninitialized_memory)
     torch.use_deterministic_algorithms(True)
     cudnn.deterministic, cudnn.benchmark = True, False
+    det.fill_uninitialized_memory = fill
     try:
         yield
     finally:
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
         cudnn.deterministic, cudnn.benchmark = prev[2], prev[3]
+        det.fill_uninitialized_memory = prev[4]
 
 
-def gradient_repeats(torch, dev, flags, batch):
-    """Two deterministic forward-backward passes of the full-width train
-    step's loss from one state on one batch and one dropout seed: the
-    parameters whose gradients differ in any bit, in registration order,
-    and the first module that holds one (None when all repeat)."""
+@contextlib.contextmanager
+def cudnn_deterministic_only(torch):
+    """cuDNN's deterministic algorithms (benchmark off) alone over a
+    block, then as they were."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+
+
+# the settings a train step can run under: the step as it is ("default"),
+# and three global modes a caller can put round it
+DET_MODES = {
+    "default": lambda torch: contextlib.nullcontext(),
+    "cudnn deterministic": cudnn_deterministic_only,
+    "deterministic, no fill": lambda torch: deterministic_algorithms(
+        torch, fill=False),
+    "deterministic": deterministic_algorithms,
+}
+
+
+def gradient_repeats(torch, dev, flags, batch, mode="default"):
+    """Two forward-backward passes of the full-width train step's loss
+    under DET_MODES[``mode``] from one state on one batch and one dropout
+    seed: the parameters whose gradients differ in any bit, in
+    registration order, and the first module that holds one (None when
+    all repeat)."""
     from swinvox_tpu_torch.train.state import create_train_state
     from swinvox_tpu_torch.train.steps import gradients, loss_and_grads
 
@@ -2417,7 +2504,7 @@ def gradient_repeats(torch, dev, flags, batch):
     model, grads = state.model, []
     for _ in range(2):
         model.zero_grad(set_to_none=True)
-        with deterministic_algorithms(torch):
+        with DET_MODES[mode](torch):
             loss_and_grads(model, images, volumes.float(),
                            torch.Generator(device=dev).manual_seed(SEED),
                            True, True)
@@ -2511,10 +2598,8 @@ def train_phase(torch, dev, card, counters, report):
 
             def timed(*sa, **sk):
                 t = time.perf_counter()
-                with (deterministic_algorithms(torch)
-                      if rec.get("det") else contextlib.nullcontext()):
-                    out = step(*sa, **sk)
-                    torch.cuda.synchronize()
+                out = step(*sa, **sk)
+                torch.cuda.synchronize()
                 rec["steps"].append((t, time.perf_counter()))
                 return out
             return timed
@@ -2666,11 +2751,15 @@ def train_phase(torch, dev, card, counters, report):
                           f"{readback[:4]} (meta {meta}, step {state.step})")
         group_l2 = state_group_l2(torch, resumed, final)
         held = {g: v for g, v in group_l2.items() if g.endswith("weights")}
+        moments = {g: v for g, v in group_l2.items()
+                   if not g.endswith("weights")}
         worst_g = max(held, key=held.get)
+        worst_m = max(moments, key=moments.get)
         worst_name = max(final, key=lambda k: rel_l2(resumed[k], final[k]))
         res["vs_uninterrupted"] = {
             "batch_loss_rel": loss_errs, "batch_loss_max_rel": loss_err,
             "state_group_rel_l2": group_l2,
+            "moments_max_rel_l2": moments[worst_m],
             "worst_tensor": worst_name,
             "worst_tensor_rel_l2": rel_l2(resumed[worst_name],
                                           final[worst_name]),
@@ -2680,8 +2769,8 @@ def train_phase(torch, dev, card, counters, report):
                 f"{e:.3g}" for e in loss_errs)
             + f" (limit {RESUME_LOSS_RTOL}); epoch-2 state relative L2 per "
             "group " + ", ".join(f"{g} {v:.3g}" for g, v in group_l2.items())
-            + f" (limit {RESUME_STATE_RTOL} on the weights; the farthest "
-            "tensor "
+            + f" (limits {RESUME_STATE_RTOL} on the weights, "
+            f"{DET_MOMENTS_RTOL} on the moments; the farthest tensor "
             f"{worst_name} {res['vs_uninterrupted']['worst_tensor_rel_l2']:.3g}"
             f"); val IoU {res['val_iou']} vs "
             f"{runs['train-slab']['val_iou'][1]}; epoch-2 checkpoint read "
@@ -2692,72 +2781,23 @@ def train_phase(torch, dev, card, counters, report):
         if not held[worst_g] <= RESUME_STATE_RTOL:
             failed.append(f"resume: state {worst_g} {held[worst_g]} > "
                           f"{RESUME_STATE_RTOL}")
+        if not moments[worst_m] <= DET_MOMENTS_RTOL:
+            failed.append(f"resume: moments {worst_m} {moments[worst_m]} > "
+                          f"{DET_MOMENTS_RTOL}")
         del state, resumed, back, final
         rec.clear()
 
-        # the same resume with the train step deterministic: train-slab
-        # uninterrupted and resumed at epoch 2, each step under
-        # deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG is set in main
-        # before cuBLAS starts); the moments held within DET_MOMENTS_RTOL,
-        # the step time beside the default runs'
-        rec.update(det=True)
-        det = runs["train-slab deterministic"] = run(
-            "train-slab-det", batch, flags, keep_calls=False)
-        det_final = _snapshot(torch, rec.pop("state")[0])
-        det_saved = dict(rec["saved"])
-        det_saved[1].unlink()
-        shutil.rmtree(work / "out" / "train-slab-det")
-        det_file = resume_at_epoch2(work, det_saved[0], "train-slab-det")
-        det_saved[0].unlink()
-        detr = runs["train-slab deterministic resumed"] = run(
-            "train-slab-det-resumed", batch, flags,
-            extra=("--weights", str(det_file)), keep_calls=False)
-        det_resumed = _snapshot(torch, rec.pop("state")[0])
-        det_l2 = state_group_l2(torch, det_resumed, det_final)
-        det_base = [x for x in det["losses"] if x[0] >= steps]
-        det_loss = max(abs(a[2] - b[2]) / abs(b[2])
-                       for a, b in zip(detr["losses"], det_base))
-        moments = {g: v for g, v in det_l2.items()
-                   if not g.endswith("weights")}
-        # the bisection: do two deterministic passes of one state on one
-        # batch give the same gradients, bit for bit?
+        # the bisection beside it: do two default passes of one state on
+        # one batch give the same gradients, bit for bit?
         differ, first = gradient_repeats(torch, dev, flags, batch)
-        det_ms = statistics.median([det["step_ms_median_after_first"],
-                                    detr["step_ms_median_after_first"]])
-        base_ms = statistics.median(
-            [runs["train-slab"]["step_ms_median_after_first"],
-             runs["train-slab resumed"]["step_ms_median_after_first"]])
-        detr["vs_uninterrupted"] = {
-            "batch_loss_max_rel": det_loss, "state_group_rel_l2": det_l2,
-            "moments_max_rel_l2": max(moments.values()),
-            "gradients_differing": differ,
-            "first_module_differing": first,
-            "step_ms_median": det_ms, "default_step_ms_median": base_ms,
-            "step_cost": det_ms / base_ms - 1}
-        for name, r in (("train-slab-det", det),
-                        ("train-slab-det-resumed", detr)):
-            if r["launches"] != want_train_launches(
-                    cfg, batch, flags,
-                    steps * (TRAIN_EPOCHS if r is det else 1),
-                    (VAL_SAMPLES // cfg.TEST.EVAL_BATCH_SIZE)
-                    * (TRAIN_EPOCHS if r is det else 1)):
-                failed.append(f"{name}: launches {r['launches']}")
-        log(f"deterministic resume (use_deterministic_algorithms, "
-            f"cudnn.deterministic): batch losses within {det_loss:.3g}; "
-            "epoch-2 state relative L2 per group " + ", ".join(
-                f"{g} {v:.3g}" for g, v in det_l2.items())
-            + f" (moments limit {DET_MOMENTS_RTOL}); step wall median "
-            f"{det_ms:.3f} ms against the default runs' {base_ms:.3f} "
-            f"({100 * (det_ms / base_ms - 1):+.1f}%); two passes of one "
-            f"state on one batch: {len(differ)} parameter gradients differ"
+        res["gradients_differing"] = differ
+        log(f"two default passes of one state on one batch "
+            f"(train-slab's flags): {len(differ)} parameter gradients differ"
             f"{f' (first module: {first}; {differ[:6]})' if differ else ''}"
             f"; on {card}")
-        if max(moments.values()) > DET_MOMENTS_RTOL and not differ:
-            failed.append(f"deterministic resume: moments "
-                          f"{max(moments.values())} > {DET_MOMENTS_RTOL} "
-                          "though every gradient repeats")
-        del det_final, det_resumed
-        rec.clear()
+        if differ:
+            failed.append(f"gradient repeats: {len(differ)} differ, first "
+                          f"module {first}")
 
         # float32 with the default flags, through the quickstart (runner
         # train mode, one epoch with validation): from_config runs the
@@ -2825,6 +2865,179 @@ def grad_distance(torch, grads, ref, names):
     return out
 
 
+def profile_ops(torch, fn):
+    """Over one call of ``fn`` (which ends in a synchronize): the wall, and
+    by op (aten ops and CUDA runtime calls) its self host ms, self device
+    ms and calls, and by kernel its device ms (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARMUP):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops, kernels = {}, {}
+    for e in prof.key_averages():
+        if "spin_kernel" in e.key or "_sleep" in e.key:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if e.device_type == DeviceType.CUDA:
+            name = short_name(e.key)
+            kernels[name] = kernels.get(name, 0.0) + dev_us / 1e3
+        else:
+            ops[e.key] = {"host_ms": e.self_cpu_time_total / 1e3,
+                          "device_ms": dev_us / 1e3, "calls": e.count}
+    return {"wall_ms": wall, "device_ms": sum(kernels.values()),
+            "host_ms": sum(o["host_ms"] for o in ops.values()),
+            "ops": ops, "kernels": kernels}
+
+
+def op_growth(a, b, key, top=16):
+    """The entries of ``key`` ("ops" or "kernels") of two ``profile_ops``
+    readings whose time grows most from ``a`` to ``b``: (name, a's and
+    b's times), by the larger of the host and device growth."""
+    def times(prof, name):
+        v = prof[key].get(name)
+        if v is None:
+            return {"host_ms": 0.0, "device_ms": 0.0, "calls": 0}
+        return v if isinstance(v, dict) else {"host_ms": 0.0,
+                                              "device_ms": v, "calls": None}
+
+    rows = []
+    for name in set(a[key]) | set(b[key]):
+        ta, tb = times(a, name), times(b, name)
+        grow = max(tb["host_ms"] - ta["host_ms"],
+                   tb["device_ms"] - ta["device_ms"])
+        rows.append((grow, name, ta, tb))
+    rows.sort(key=lambda r: -r[0])
+    return [{"name": n, "growth_ms": g, "a": ta, "b": tb}
+            for g, n, ta, tb in rows[:top] if g > 0]
+
+
+STEP_MODE_STEPS = 10  # timed steps per mode and turn
+
+
+def step_modes(torch, dev, card, report):
+    """The batch-32 1-view default train step, full width, run as it is
+    ("default") and under ``deterministic_algorithms`` in turns (default,
+    deterministic, deterministic, default; STEP_MODE_STEPS timed steps a
+    turn, host clock around each step and its synchronize), then one step
+    of each profiled by op and kernel: the wall medians, device times,
+    and the ops and kernels whose time grows from one mode to the
+    other."""
+    from swinvox_tpu_torch.train.state import create_train_state
+    from swinvox_tpu_torch.train.steps import make_train_step
+
+    st, opts = create_train_state(flag_config({}),
+                                  torch.Generator().manual_seed(SEED),
+                                  device=dev)
+    step = make_train_step(st.model, opts)
+    rng = np.random.default_rng(SEED)
+    img = torch.from_numpy(rng.standard_normal(
+        (BATCH, 1, 224, 224, 3)).astype(np.float32)).to(dev)
+    vol = torch.from_numpy(
+        (rng.random((BATCH, 32, 32, 32)) < 0.3).astype(np.uint8)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def one(mode):
+        with DET_MODES[mode](torch):
+            step(st, img, vol, gen)
+            torch.cuda.synchronize()
+
+    walls = {"default": [], "deterministic": []}
+    for mode in walls:
+        for _ in range(2):
+            one(mode)
+    for mode in ("default", "deterministic", "deterministic", "default"):
+        for _ in range(STEP_MODE_STEPS):
+            t0 = time.perf_counter()
+            one(mode)
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+    profs = {mode: profile_ops(torch, lambda m=mode: one(m)) for mode in walls}
+    a, b = profs["default"], profs["deterministic"]
+    out = {"card": card, "batch": BATCH, "views": 1,
+           "wall_ms": {m: summary(w) for m, w in walls.items()},
+           "profile": {m: {k: v for k, v in p.items()
+                           if k not in ("ops", "kernels")}
+                       for m, p in profs.items()},
+           "ops": {m: p["ops"] for m, p in profs.items()},
+           "ops_growing": op_growth(a, b, "ops"),
+           "kernels_growing": op_growth(a, b, "kernels")}
+    del st, opts, step
+    torch.cuda.empty_cache()
+    wd, wt = (statistics.median(walls[m]) for m in walls)
+    log(f"train step batch {BATCH}, 1 view: wall median default {wd:.3f} ms"
+        f", deterministic {wt:.3f} ms ({100 * (wt / wd - 1):+.1f}%); one "
+        f"profiled step: device {a['device_ms']:.3f} / {b['device_ms']:.3f} "
+        f"ms, host (self, all ops) {a['host_ms']:.3f} / {b['host_ms']:.3f} "
+        f"ms, wall {a['wall_ms']:.3f} / {b['wall_ms']:.3f} ms; on {card}")
+    for key in ("ops_growing", "kernels_growing"):
+        log(f"  {key.replace('_', ' ')} (host / device ms, calls; default "
+            "-> deterministic):")
+        for r in out[key]:
+            d, t = r["a"], r["b"]
+            log(f"    {r['name'][:72]}: {d['host_ms']:.3f} / "
+                f"{d['device_ms']:.3f} ({d['calls']}) -> {t['host_ms']:.3f} "
+                f"/ {t['device_ms']:.3f} ({t['calls']})")
+    report["step_modes"] = out
+    return out
+
+
+def step_repeats(torch, dev, card, report):
+    """``gradient_repeats`` in the default mode for the default flags and
+    for ``train-slab``'s (TRAIN_CONFIGS' batches, 3 views); where a
+    gradient differs, again under each global mode of DET_MODES, which
+    names the setting that makes it repeat.  Returns the failures."""
+    out, failed = {}, []
+    for name in ("train-default", "train-slab"):
+        batch, flags = TRAIN_CONFIGS[name]
+        rec = out[name] = {}
+        for mode in DET_MODES:
+            differ, first = gradient_repeats(torch, dev, flags, batch, mode)
+            modules = sorted({".".join(k.split(".")[:2]) for k in differ})
+            rec[mode] = {"differing": differ, "first_module": first,
+                         "modules": modules}
+            log(f"gradient repeats, {name} (batch {batch}, {TRAIN_VIEWS} "
+                f"views), {mode}: {len(differ)} parameter gradients differ"
+                + (f" (first module {first}; in {modules})" if differ
+                   else "") + f"; on {card}")
+            if mode == "default":
+                if not differ:
+                    break
+                failed.append(f"{name}: {len(differ)} gradients differ "
+                              f"between two default passes, first {first}")
+    report["gradient_repeats"] = out
+    return failed
+
+
+def rewindow_wattn_phase(torch, dev, card, report):
+    """``--rewindow-wattn``: kernel A's check (phase 3's, with the device
+    time of a forward's 7 calls and the ``index_select`` yardstick) and
+    kernel G's (phase 13's, with the device time of a forward's 12
+    calls and the SDPA yardstick), then ``gradient_repeats`` in the
+    default mode for both flag sets and the batch-32 1-view step
+    profiled as it is and under ``deterministic_algorithms``."""
+    from swinvox_tpu_torch.models.swin import shifted_window_mask
+    from swinvox_tpu_torch.ops import pallas_window_attention as wa
+    from swinvox_tpu_torch.ops import rewindow as rw
+
+    check_rewindow(torch, rw, dev, report)
+    report["rewindow"]["library_ms"] = library_rewindow(torch, rw, dev)
+    log(f"index_select yardstick: {report['rewindow']['library_ms']:.4f} ms "
+        "for the 7 calls of a forward")
+    check_window_attention(torch, wa, shifted_window_mask, dev, report)
+    failed = step_repeats(torch, dev, card, report)
+    step_modes(torch, dev, card, report)
+    if failed:
+        raise AssertionError("gradient repeats: " + "; ".join(failed))
+
+
 def eval_counters(rw, blk, fm, mi, wa):
     """The launch counters phase 14 reads."""
     return {"rewindow": rw.rewindow,
@@ -2835,16 +3048,20 @@ def eval_counters(rw, blk, fm, mi, wa):
 
 
 def main(argv) -> int:
-    # cuBLAS reads this when it starts: phase 16's deterministic train
-    # step needs it (a workspace per stream that repeats its reductions)
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if argv == ["--rewindow-wattn"]:
+        # cuBLAS reads this when it starts: use_deterministic_algorithms
+        # (the step's readings in that mode) refuses cuBLAS without it.
+        # The full run leaves it unset, as a user's run does: phase 16
+        # holds the default step's repeats without it
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     modes = {"--eval-only": "eval", "--merger-stack": "merger",
-             "--merger-conv": "merger_conv", "--wmsa-down1": "wmsa_down1"}
+             "--merger-conv": "merger_conv", "--wmsa-down1": "wmsa_down1",
+             "--rewindow-wattn": "rewindow_wattn"}
     if argv and (len(argv) > 1 or argv[0] not in modes):
-        print(f"usage: chip_smoke.py [--eval-only | --merger-stack | "
-              f"--merger-conv | --wmsa-down1], not {argv}", file=sys.stderr)
+        print(f"usage: chip_smoke.py [{' | '.join(modes)}], not {argv}",
+              file=sys.stderr)
         return 2
     eval_only = argv == ["--eval-only"]
     if not torch.cuda.is_available():
@@ -2900,8 +3117,16 @@ def main(argv) -> int:
             merger_stack_phase(torch, dev, card, report)
         elif argv == ["--merger-conv"]:
             merger_conv_phase(torch, dev, card, report)
-        else:
+        elif argv == ["--wmsa-down1"]:
             wmsa_down1_phase(torch, dev, card, report)
+        else:
+            out_dir = ROOT / "chiprun_out"
+            out_dir.mkdir(exist_ok=True)
+            try:
+                rewindow_wattn_phase(torch, dev, card, report)
+            finally:  # the readings stay when a hold fails
+                (out_dir / "chip_smoke_rewindow_wattn.json").write_text(
+                    json.dumps(report, indent=1, default=str))
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / f"chip_smoke_{modes[argv[0]]}.json").write_text(

@@ -19,6 +19,7 @@ A failed build raises: there is no CPU fallback behind a CUDA tensor.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,6 +27,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -186,12 +189,35 @@ def _declare(lib: ctypes.CDLL) -> None:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call (thread-safe)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             _declare(lib)
             _lib = lib
         return _lib
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` around a launch, or nothing when
+    ``device`` is already the current one (the common case: the guard's
+    switch and switch back are host time on every call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
+
+
+def stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream on ``device``, as an int for
+    a kernel's C entry point (``torch.cuda.current_stream(device)
+    .cuda_stream`` without building a Stream object)."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

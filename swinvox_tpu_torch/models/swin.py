@@ -76,6 +76,41 @@ def relative_position_index(window: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def relative_position_sources(window: int) -> np.ndarray:
+    """[(2w-1)^2, w^2]: for each row of the bias table, the flat [T * T]
+    positions that read it (``relative_position_index``), ascending, padded
+    with T * T (a zero row appended to the gradient).  The zero offset is
+    read T times, every other offset fewer."""
+    idx = relative_position_index(window).reshape(-1)
+    rows = (2 * window - 1) ** 2
+    out = np.full((rows, window * window), idx.size, np.int64)
+    for r in range(rows):
+        pos = np.flatnonzero(idx == r)
+        out[r, :pos.size] = pos
+    return out
+
+
+class _TableGather(torch.autograd.Function):
+    """``table[index]`` for a [R, heads] table and a constant index whose
+    gradient sums each table row's contributions in one fixed order: a
+    gather of the incoming gradient's rows by ``sources``
+    (``relative_position_sources``) and a sum over them, where indexing's
+    own backward is a scatter-add (``index_put_`` with accumulate), whose
+    order is the library's.  The sum's bits repeat from call to call."""
+
+    @staticmethod
+    def forward(ctx, table, index, sources):
+        ctx.save_for_backward(sources)
+        return table[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (sources,) = ctx.saved_tensors
+        padded = torch.cat([grad, grad.new_zeros(1, grad.shape[1])])
+        return padded[sources].sum(1), None, None
+
+
+@functools.lru_cache(maxsize=None)
 def shifted_window_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
     """Additive attention mask [nW, T, T] for SW-MSA (0 same-region, -100 else)."""
     img_mask = np.zeros((h, w), dtype=np.int32)
@@ -117,11 +152,18 @@ class WindowMSA(nn.Module):
             torch.from_numpy(relative_position_index(window).reshape(-1)),
             persistent=False,
         )
+        self.register_buffer(
+            "rel_sources",
+            torch.from_numpy(relative_position_sources(window)),
+            persistent=False,
+        )
 
     def rel_bias(self) -> torch.Tensor:
-        """[heads, T, T] float32 relative-position bias."""
+        """[heads, T, T] float32 relative-position bias; its gradient into
+        the table is a fixed-order sum (``_TableGather``)."""
         t = self.window * self.window
-        return (self.rel_pos_bias_table[self.rel_index]
+        return (_TableGather.apply(self.rel_pos_bias_table, self.rel_index,
+                                   self.rel_sources)
                 .view(t, t, self.num_heads).permute(2, 0, 1).contiguous())
 
     def forward(self, x_windows: torch.Tensor,

@@ -7,7 +7,7 @@ softmax); ``window_attention(..., use_pallas=True)`` dispatches a CUDA
 tensor to kernel G (``ops/pallas_window_attention.py``) as the JAX
 function dispatches to its Pallas kernel on a TPU.  The Swin block's
 unfused path runs the plain core; the fused block (kernel B) and the
-fused W-MSA (kernel H) run their own copy of kernel G's device code.
+fused W-MSA (kernel H) run kernel B's own attention launch.
 
 Shapes (windows flattened into the batch axis):
   q, k, v  : [nW, heads, T, head_dim]

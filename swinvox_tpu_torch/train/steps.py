@@ -16,6 +16,16 @@ BatchNorm statistics advance once per micro-batch, as in JAX.
 Dropout and drop-path masks come from the ``generator`` the caller
 passes (on the model's device); the JAX step folds the step number into
 its key instead, and the two frameworks' draws never match.
+
+The step repeats its own bits, as the JAX package's XLA step does: from
+one state, batch and generator state, two steps give the same gradients,
+moments and weights, so a resumed run continues what an uninterrupted
+one would.  Each forward and backward runs with cuDNN restricted to its
+deterministic algorithms (the backward of a conv otherwise picks
+algorithms that sum in a varying order), and the relative-position bias
+table's gradient is a fixed-order sum (``models/swin._TableGather``);
+the port's kernels sum in fixed orders.  The cuDNN flags are set for the
+step and restored after it.
 """
 
 from __future__ import annotations
@@ -40,17 +50,20 @@ def loss_and_grads(model, images: torch.Tensor, volumes: torch.Tensor,
                    enable_refiner: bool, scale: float = 1.0):
     """One forward in training mode (advancing the BatchNorm statistics)
     and one backward of ``scale`` x the loss, adding into the parameters'
-    ``.grad``.  Returns the encoder and refiner losses (0-dim tensors)."""
-    out = model(images, train=True, enable_merger=enable_merger,
-                enable_refiner=enable_refiner, generator=generator)
-    encoder_loss = bce_with_logits(out["merged_volumes"], volumes)
-    if enable_refiner:
-        refiner_loss = bce_with_logits(out["refined_volumes"], volumes)
-        total = encoder_loss + refiner_loss
-    else:
-        refiner_loss = encoder_loss
-        total = encoder_loss
-    (total * scale).backward()
+    ``.grad``, both with cuDNN's deterministic algorithms (the caller's
+    cuDNN flags restored after).  Returns the encoder and refiner losses
+    (0-dim tensors)."""
+    with cudnn_deterministic():
+        out = model(images, train=True, enable_merger=enable_merger,
+                    enable_refiner=enable_refiner, generator=generator)
+        encoder_loss = bce_with_logits(out["merged_volumes"], volumes)
+        if enable_refiner:
+            refiner_loss = bce_with_logits(out["refined_volumes"], volumes)
+            total = encoder_loss + refiner_loss
+        else:
+            refiner_loss = encoder_loss
+            total = encoder_loss
+        (total * scale).backward()
     return encoder_loss.detach(), refiner_loss.detach()
 
 

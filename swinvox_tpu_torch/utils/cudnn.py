@@ -1,4 +1,4 @@
-"""cuDNN settings shared by the serving and evaluation forwards."""
+"""cuDNN settings shared by the serving, evaluation and training steps."""
 
 from __future__ import annotations
 
@@ -9,12 +9,13 @@ import torch
 
 @contextlib.contextmanager
 def cudnn_deterministic():
-    """cuDNN restricted to deterministic algorithms (a process-wide flag
-    in PyTorch), and back as it was after."""
+    """cuDNN restricted to deterministic algorithms, chosen by its
+    heuristics (benchmark off, so a run never picks by timing), and both
+    process-wide flags back as they were after."""
     cudnn = torch.backends.cudnn
-    previous = cudnn.deterministic
-    cudnn.deterministic = True
+    previous = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
     try:
         yield
     finally:
-        cudnn.deterministic = previous
+        cudnn.deterministic, cudnn.benchmark = previous
