@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drives the PyTorch + CUDA port's serving path, training step,
-evaluation entry point and training entry point on one NVIDIA GPU.
+evaluation entry point, training entry point and front ends on one
+NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
     python3 chip_smoke.py --eval-only   # phases 1, 2 and 14 only
+    python3 chip_smoke.py --front-ends  # phases 1, 2 and 17 only
     python3 chip_smoke.py --merger-stack  # phases 1, 2, 9 and two steps
     python3 chip_smoke.py --merger-conv   # phases 1, 2, I, J and two runs
     python3 chip_smoke.py --wmsa-down1    # phases 1, 2, H, L and two runs
@@ -36,7 +38,7 @@ the batch-32 1-view step run in turns as it is and under
 algorithms: wall medians, and one profiled step of each by op (self host
 and device ms, calls) and by kernel, with the ops whose time grows; it
 sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
-mode requires.
+mode requires.  ``--front-ends`` runs phase 17 alone (about 1.5 minutes).
 
 It imports torch and swinvox_tpu_torch only.  Phases (any failure
 raises, so the exit code is nonzero):
@@ -201,9 +203,38 @@ raises, so the exit code is nonzero):
      validation) at COMPUTE_DTYPE float32 with the default flags: the
      resolved kernel routes (all plain) and the launches (none).  Step
      wall (median after the first), epoch and ``evaluate`` walls are
-     smoke readings.
+     smoke readings;
+ 17. the front ends, each through its entry point at full width on a
+     synthetic fixture (64 train and 16 val samples, 2 categories, 3
+     views), every B, C, D, E and F call of each held against its plain
+     version on its own inputs (phase 4's, 10's and 9's rules; a call
+     recorded for each launch) and the launches of each equal to what
+     its config gives: HTTP serving (``serve.main`` in-process: a
+     MultiServer of two checkpoints written by the port on 127.0.0.1,
+     port 0, batch 8 at 3 views; HTTP_REQUESTS requests of 1 and 3 views
+     from HTTP_THREADS threads of a client process (``http_client``)
+     after a warm-up request a model; each response exactly its row of a
+     batch its model ran, ``Predictor.predict`` of each such batch
+     repeating its bits, the request in another batch and slot within
+     VIEW3_MAX, the other model's result more than HTTP_MODELS_APART
+     away; 404 for an unknown model, 503 under a full queue and 504 past
+     ``timeout_ms`` from gated servers around the same predictor;
+     latency median and p99, requests/s, the dispatchers' ``predict``
+     ms); ``runner --lr_find`` (LR_STEPS steps at batch 16, 1 view:
+     finite smoothed losses, the suggestion, steps/s recorded and, in a
+     second run, unrecorded);
+     ``runner --tune`` (2 trials of 1 epoch, 1 view: no trial FAILED,
+     ``config_best.json``); ``runner`` training one epoch at batch 16, 3
+     views under ``TRAIN.DEVICE_AUGMENT`` with ``--profile`` (the first
+     batch's augmented images against the host transform of the same
+     draws within atol 3e-4, rtol 1e-4; the trace written), then the
+     same epoch unrecorded with the augmentation on the card and with the
+     host transform (iteration walls); ``create_train_state`` with
+     ``NETWORK.PRETRAINED_BACKBONE`` on fake backbone files of the real
+     shapes (every grafted tensor equal to its source) and one step from
+     it; ``runner --test`` on generated Pix3D and Pascal3D fixtures.
 
-Phases 14 and 16 write their fixtures and checkpoints under a fresh
+Phases 14, 16 and 17 write their fixtures and checkpoints under a fresh
 temporary directory outside the repo (``tempfile.mkdtemp``), removed at
 the end even on failure; the script leaves nothing in the repo but
 ``chiprun_out/chip_smoke.json``.  Phase 16 writes seven full checkpoints
@@ -3038,6 +3069,814 @@ def rewindow_wattn_phase(torch, dev, card, report):
         raise AssertionError("gradient repeats: " + "; ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the front ends (HTTP serving, the LR finder, the tuner, the
+# augmentation on the card with --profile, the pretrained start, the
+# Pix3D and Pascal3D evaluation), each through its entry point.
+
+FRONT_SAMPLES = (32, 8)        # train, val samples per category (2)
+FRONT_BATCH = 16               # 1 view: E 1 a step; 3 views: E and F
+HTTP_BATCH = 8                 # the HTTP servers' batch, 3 views
+HTTP_REQUESTS = 48             # the timed burst, from HTTP_THREADS clients
+HTTP_THREADS = 6
+HTTP_MODELS_APART = 1e-2       # the two models' responses differ by more
+LR_STEPS = 12
+AUG_ATOL, AUG_RTOL = 3e-4, 1e-4  # device augmentation vs host transform
+CROSS_SAMPLES = 8              # Pix3D and Pascal3D fixture samples
+FRONT_COUNTERS = ("fused_swin_block", "swin_block_train_forward",
+                  "swin_block_train_backward", "merger_stack_forward",
+                  "merger_stack_backward")
+
+
+@contextlib.contextmanager
+def quiet_log():
+    """The per-call lines of the hold helpers kept out of stdout."""
+    global log
+    real = log
+    log = lambda *a: None  # noqa: E731
+    try:
+        yield
+    finally:
+        log = real
+
+
+@contextlib.contextmanager
+def counted(counters):
+    """Launch counters at 0 for what runs inside."""
+    for f in counters.values():
+        f.launches = 0
+    yield None
+
+
+@contextlib.contextmanager
+def front_recorders(torch, counters):
+    """Launch counters at 0, and every B, C/D and merger-stack call of
+    what runs inside recorded (``Recorder``); yields the recorders."""
+    from swinvox_tpu_torch.models import merger as merger_mod
+    from swinvox_tpu_torch.models import swin as swin_mod
+
+    with counted(counters), contextlib.ExitStack() as stack:
+        yield {k: stack.enter_context(Recorder(torch, mod, attr))
+               for k, mod, attr in (
+                   ("B", swin_mod, "fused_swin_block"),
+                   ("CD", swin_mod, "fused_swin_block_train"),
+                   ("EF", merger_mod, "merger_stack"))}
+
+
+def hold_front_calls(torch, tag, recs, launches):
+    """Every recorded call of a front-end run against its plain version on
+    its own inputs: B by phase 4's rule, C and D by phase 10's
+    (``hold_step_swin``), E and F by phase 9's.  Raises on any failure."""
+    from swinvox_tpu_torch.ops import pallas_merger_stack as ms
+    from swinvox_tpu_torch.ops import pallas_swin_block as blk
+
+    out = {}
+    with quiet_log():
+        if recs["B"].calls or launches["fused_swin_block"]:
+            out["B"] = hold_eval_calls(torch, tag, recs["B"].calls,
+                                       blk.swin_block_reference,
+                                       launches["fused_swin_block"])
+        if recs["CD"].calls:
+            out["CD"] = hold_step_swin(torch, blk, recs["CD"].calls, tag)
+        out["EF"] = hold_run_merger_calls(torch, ms, recs["EF"].calls, tag)
+    failed = out.get("B", {}).get("failed", []) + out["EF"]["failed"]
+    if len(recs["CD"].calls) != launches["swin_block_train_forward"]:
+        failed.append(f"{tag}: {len(recs['CD'].calls)} C calls recorded, "
+                      f"{launches['swin_block_train_forward']} launched")
+    if len(recs["EF"].calls) != launches["merger_stack_forward"]:
+        failed.append(f"{tag}: {len(recs['EF'].calls)} merger-stack calls "
+                      f"recorded, {launches['merger_stack_forward']} "
+                      "launched")
+    log(f"  {tag}: held " + ", ".join(
+        f"{k} {len(r.calls)} calls" for k, r in recs.items())
+        + " against the plain versions on their own inputs; worst " + "; "
+        .join(f"{k} {v['worst']}" for k, v in out.items())
+        + f"; {len(failed)} failed")
+    if failed:
+        raise AssertionError("; ".join(failed[:8]))
+    for r in recs.values():
+        r.calls.clear()
+    return {k: {"calls": v.get("calls"), "worst": v["worst"]}
+            for k, v in out.items()}
+
+
+def want_front(cfg, batch, views, steps, forwards):
+    """B, C, D, E, F launches of ``steps`` train steps and ``forwards``
+    evaluation forwards under ``cfg`` (A is on no model path)."""
+    per = train_launches(cfg, batch, views)
+    want = {k: steps * per[k] for k in FRONT_COUNTERS[1:]}
+    want["fused_swin_block"] = forwards * swin_calls(cfg)
+    return want
+
+
+def front_runner(torch, argv, name):
+    from swinvox_tpu_torch.cli import runner
+
+    t = time.perf_counter()
+    if runner.main(argv) != 0:
+        raise AssertionError(f"runner {name} failed")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def _post(url, body, timeout=300):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _npy(x):
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, x)
+    return buf.getvalue()
+
+
+class GatedPredictor:
+    """A Predictor whose ``predict`` waits at a gate first (the queue and
+    the timeout of the status checks made deterministic)."""
+
+    def __init__(self, predictor):
+        import threading
+
+        self.predictor, self.cfg = predictor, predictor.cfg
+        self.entered, self.gate = threading.Event(), threading.Event()
+
+    def predict(self, batch):
+        self.entered.set()
+        if not self.gate.wait(300):
+            raise TimeoutError("gate never opened")
+        return self.predictor.predict(batch)
+
+
+def http_statuses(serve, predictor, **server_kw):
+    """Statuses of three requests to a gated server: the first held in
+    ``predict``, the second queued, then the third; 0.3 s later the gate
+    opens."""
+    import threading
+
+    gated = GatedPredictor(predictor)
+    server = serve.BatchingServer(gated, batch_size=1, n_views=1,
+                                  max_wait_ms=0.0, **server_kw)
+    httpd = serve._make_http_server(server, 0, "127.0.0.1")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/predict"
+    body = _npy(np.random.default_rng(SEED + 21).standard_normal(
+        (1, 224, 224, 3)).astype(np.float32))
+    res, clients = {}, []
+
+    def start(i):
+        clients.append(threading.Thread(
+            target=lambda: res.__setitem__(i, _post(url, body)[0])))
+        clients[-1].start()
+
+    try:
+        start(0)
+        if not gated.entered.wait(300):
+            raise AssertionError("the gated server took no request")
+        start(1)
+        for _ in range(3000):
+            if server._queue.qsize() == 1:
+                break
+            time.sleep(0.01)
+        start(2)
+        time.sleep(0.3)
+    finally:
+        gated.gate.set()
+        for c in clients:
+            c.join(timeout=300)
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        server.close()
+    return tuple(res.get(i) for i in range(3))
+
+
+def http_requests(n):
+    """The HTTP phase's requests: two warm-ups, then ``n``; each (route,
+    [1 or 3, 224, 224, 3] images), half to each model."""
+    rng = np.random.default_rng(SEED + 20)
+    return [("/predict" if i % 2 == 0 else "/predict/b",
+             rng.standard_normal((1 if i % 4 < 2 else 3, 224, 224, 3))
+             .astype(np.float32)) for i in range(n + 2)]
+
+
+def http_client(url, out, n, threads):
+    """The HTTP phase's clients, run in a process of their own: the two
+    warm-up requests in turn, then the rest from HTTP_THREADS threads at
+    once; the responses to ``out`` (npz) and, as the last line of stdout,
+    each request's latency and the burst's start and length (perf_counter
+    is one clock across processes here)."""
+    import io
+
+    reqs = http_requests(int(n))
+    lat, results = {}, {}
+
+    def send(i):
+        path, x = reqs[i]
+        t = time.perf_counter()
+        status, body = _post(url + path, _npy(x))
+        lat[i] = (time.perf_counter() - t) * 1e3
+        if status != 200:
+            raise AssertionError(f"request {i} {path}: status {status} "
+                                 f"{body[:200]!r}")
+        results[f"r{i}"] = np.load(io.BytesIO(body))
+
+    send(0)
+    send(1)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(int(threads)) as pool:
+        list(pool.map(send, range(2, len(reqs))))
+    burst_s = time.perf_counter() - t0
+    np.savez(out, **results)
+    print(json.dumps({"latency_ms": [lat[i] for i in range(len(reqs))],
+                      "t0": t0, "burst_s": burst_s}))
+
+
+def http_front(torch, dev, card, counters, ckpts, work):
+    """``python -m swinvox_tpu_torch.serve`` in-process (``serve.main``):
+    two checkpoints behind one MultiServer on 127.0.0.1, port 0, batch
+    HTTP_BATCH at 3 views; a warm-up request per model, then HTTP_REQUESTS
+    of 1 and 3 views from HTTP_THREADS threads of a client process, half
+    to each model; each response held against Predictor.predict (see the
+    top); 404 for an unknown model; 503 and 504 from gated servers
+    (max_queue 1, timeout_ms 50) around the same predictor; every B call
+    held against its plain version."""
+    import threading
+    import urllib.request
+
+    from swinvox_tpu_torch import serve
+    from swinvox_tpu_torch.infer import Predictor
+
+    made, pred_spans, batches_run = [], [], []
+    real_from = Predictor.from_checkpoint.__func__
+
+    def recorded_from(cls, path, cfg=None, device="cuda"):
+        """The predictor, its ``predict`` timed (it returns host arrays,
+        so the wall is the card's work and the copies) and each batch it
+        ran kept with its result."""
+        pred = real_from(cls, path, cfg, device)
+        real_predict = pred.predict
+        which = len(made)
+
+        def predict(batch):
+            t = time.perf_counter()
+            res = real_predict(batch)
+            pred_spans.append((t, time.perf_counter()))
+            batches_run.append((which, batch.copy(), res.copy()))
+            return res
+
+        pred.predict = predict
+        made.append(pred)
+        return pred
+
+    reqs = http_requests(HTTP_REQUESTS)
+    ready = []
+    argv = ["--checkpoint", f"a={ckpts[0]}", "--checkpoint",
+            f"b={ckpts[1]}", "--port", "0", "--host", "127.0.0.1",
+            "--batch-size", str(HTTP_BATCH), "--n-views", "3",
+            "--max-wait-ms", "5", "--platform", str(dev)]
+
+    Predictor.from_checkpoint = classmethod(recorded_from)
+    try:
+        with front_recorders(torch, counters) as recs:
+            thread = threading.Thread(target=lambda: serve.main(
+                argv, on_ready=ready.append), daemon=True)
+            thread.start()
+            for _ in range(6000):
+                if ready or not thread.is_alive():
+                    break
+                time.sleep(0.05)
+            if not ready:
+                raise AssertionError("serve.main did not come up")
+            url = f"http://127.0.0.1:{ready[0].server_address[1]}"
+            try:
+                # the clients in a process of their own, off the server's
+                # interpreter lock
+                client = subprocess.run(
+                    [sys.executable, "-c", "import sys; sys.path.insert(0, "
+                     f"{str(ROOT)!r}); import chip_smoke; "
+                     "chip_smoke.http_client(*sys.argv[1:])", url,
+                     str(work / "responses.npz"), str(HTTP_REQUESTS),
+                     str(HTTP_THREADS)], capture_output=True,
+                    text=True, timeout=900)
+                if client.returncode != 0:
+                    raise AssertionError(
+                        "HTTP client: " + client.stderr[-2000:])
+                run = json.loads(client.stdout.splitlines()[-1])
+                unknown = _post(url + "/predict/nope", _npy(reqs[0][1]))[0]
+                with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+                    stats = json.loads(r.read())
+            finally:
+                ready[0].shutdown()
+                thread.join(timeout=300)
+            if thread.is_alive():
+                raise AssertionError("serve.main did not return after "
+                                     "shutdown")
+            full = http_statuses(serve, made[0], max_queue=1)
+            late = http_statuses(serve, made[0], max_queue=4,
+                                 timeout_ms=50.0)
+            torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+        batches = sum(s["batches"] for s in stats.values())
+        held = hold_front_calls(torch, "HTTP", recs, launches)
+    finally:
+        Predictor.from_checkpoint = classmethod(real_from)
+    gated_batches = sum(s == 200 for s in full + late)
+    if launches["fused_swin_block"] != swin_calls(made[0].cfg) * (
+            batches + gated_batches):
+        raise AssertionError(f"HTTP: B launches {launches} for {batches} "
+                             f"+ {gated_batches} batches")
+    if (unknown, full, late) != (404, (200, 200, 503), (200, 504, 504)):
+        raise AssertionError(f"HTTP statuses: unknown model {unknown}, "
+                             f"full queue {full}, timeout {late}")
+    # each response is its row of a batch the server ran, and
+    # Predictor.predict of that batch gives the same bits again (it did
+    # not while two dispatchers' predicts could clear each other's cuDNN
+    # flags: up to 0.015 apart); slot_max_abs reads the request in
+    # another batch and slot
+    with np.load(work / "responses.npz") as z:
+        results = [z[f"r{i}"] for i in range(len(reqs))]
+    served = [b for b in batches_run if b[1].shape[0] == HTTP_BATCH]
+    for which, batch, res in served:
+        again = made[which].predict(batch)
+        if not np.array_equal(again, res):
+            raise AssertionError(
+                "Predictor.predict of a served batch does not repeat its "
+                f"result: max abs {float(np.abs(again - res).max())}")
+    fits = [x[np.arange(3) % x.shape[0]] for _, x in reqs]
+    for i, (path, _) in enumerate(reqs):
+        got, which = results[i], int(path.endswith("/b"))
+        if got.shape != (32, 32, 32) or not np.all(np.isfinite(got)):
+            raise AssertionError(f"HTTP request {i}: bad result {got.shape}")
+        rows = [res[j] for w, batch, res in served if w == which
+                for j in range(HTTP_BATCH) if np.array_equal(batch[j],
+                                                             fits[i])]
+        if not any(np.array_equal(got, r) for r in rows):
+            raise AssertionError(f"HTTP request {i} {path}: the response is "
+                                 "no row of a batch its model ran")
+    # the requests again in batches of their order, through both models:
+    # the own model's result stays within VIEW3_MAX, the other's is far
+    slot_err = between = 0.0
+    for lo in range(0, len(reqs), HTTP_BATCH):
+        group = np.zeros((HTTP_BATCH,) + fits[0].shape, np.float32)
+        n = len(fits[lo:lo + HTTP_BATCH])
+        group[:n] = fits[lo:lo + HTTP_BATCH]
+        outs = [m.predict(group) for m in made[:2]]
+        for j in range(n):
+            which = int(reqs[lo + j][0].endswith("/b"))
+            got = results[lo + j]
+            slot_err = max(slot_err, float(np.abs(outs[which][j] - got)
+                                           .max()))
+            between = max(between, float(np.abs(outs[1 - which][j] - got)
+                                         .max()))
+    if between < HTTP_MODELS_APART or slot_err > VIEW3_MAX:
+        raise AssertionError(f"HTTP: a response in another batch moves by "
+                             f"{slot_err} (bound {VIEW3_MAX}); the two "
+                             f"models differ by {between}")
+    timed, t0, burst_s = run["latency_ms"][2:], run["t0"], run["burst_s"]
+    burst = [(b - a) * 1e3 for a, b in pred_spans
+             if t0 <= a and b <= t0 + burst_s]
+    res = {"requests": len(reqs), "batches": batches, "stats": stats,
+           "burst_predict_ms": summary(burst),
+           "burst_predict_share": sum(burst) / 1e3 / burst_s,
+           "latency_ms": summary(timed),
+           "latency_p99_ms": float(np.percentile(timed, 99)),
+           "requests_per_s": len(timed) / burst_s, "burst_s": burst_s,
+           "served_batches_repeated": len(served),
+           "slot_max_abs": slot_err, "models_differ_by": between,
+           "statuses": {"unknown_model": unknown, "queue_full": full,
+                        "timeout": late},
+           "launches": launches, "held": held}
+    log(f"HTTP (serve.main, 2 models, batch {HTTP_BATCH}, 3 views): "
+        f"{len(timed)} requests of 1 and 3 views from {HTTP_THREADS} "
+        f"threads of a client process in {burst_s:.3f} s, "
+        f"{res['requests_per_s']:.2f} requests/s; latency ms median "
+        f"{res['latency_ms']['median']:.3f}, "
+        f"p99 {res['latency_p99_ms']:.3f}, max {max(timed):.3f}; "
+        f"{batches} batches in all, {len(burst)} in the burst, predict ms "
+        f"median {res['burst_predict_ms']['median']:.3f} (their sum "
+        f"{res['burst_predict_share']:.3f} of the burst's wall; two "
+        f"dispatchers share the card); every response its row of a batch "
+        f"its model ran, and Predictor.predict of each of the "
+        f"{len(served)} batches repeats its bits; the same request in "
+        f"another batch and slot moves by up to {slot_err:.6g} (bf16), the "
+        f"other model's by {between:.6g};"
+        f" statuses unknown model {unknown}, full queue {full}, timeout "
+        f"{late}; launches {launches}; on {card}")
+    return res
+
+
+def fake_backbones(out_dir):
+    """``resnet50.npz`` and ``swin_tiny.npz`` of the real shapes
+    (torchvision and timm names), numpy-seeded; returns the dicts."""
+    rng = np.random.default_rng(SEED + 30)
+
+    def normal(*shape, scale=0.05):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    res = {}
+
+    def bn(name, c):
+        res[f"{name}.weight"] = 1 + normal(c)
+        res[f"{name}.bias"] = normal(c)
+        res[f"{name}.running_mean"] = normal(c)
+        res[f"{name}.running_var"] = 1 + np.abs(normal(c))
+
+    res["conv1.weight"] = normal(64, 3, 7, 7)
+    bn("bn1", 64)
+    in_c = 64
+    for stage, (depth, width) in enumerate([(3, 64), (4, 128), (6, 256)], 1):
+        for b in range(depth):
+            p = f"layer{stage}.{b}"
+            res[f"{p}.conv1.weight"] = normal(width, in_c if b == 0
+                                              else width * 4, 1, 1)
+            bn(f"{p}.bn1", width)
+            res[f"{p}.conv2.weight"] = normal(width, width, 3, 3)
+            bn(f"{p}.bn2", width)
+            res[f"{p}.conv3.weight"] = normal(width * 4, width, 1, 1)
+            bn(f"{p}.bn3", width * 4)
+            if b == 0:
+                res[f"{p}.downsample.0.weight"] = normal(width * 4, in_c, 1,
+                                                         1)
+                bn(f"{p}.downsample.1", width * 4)
+        in_c = width * 4
+    sw = {"patch_embed.proj.weight": normal(96, 3, 4, 4),
+          "patch_embed.proj.bias": normal(96),
+          "patch_embed.norm.weight": 1 + normal(96),
+          "patch_embed.norm.bias": normal(96)}
+    dims, heads = [96, 192, 384, 768], [3, 6, 12, 24]
+    for s, depth in enumerate([2, 2, 6, 2]):
+        c = dims[s]
+        if s > 0:
+            p = f"layers.{s}.downsample"
+            sw[f"{p}.norm.weight"] = 1 + normal(4 * dims[s - 1])
+            sw[f"{p}.norm.bias"] = normal(4 * dims[s - 1])
+            sw[f"{p}.reduction.weight"] = normal(2 * dims[s - 1],
+                                                 4 * dims[s - 1])
+        for d in range(depth):
+            p = f"layers.{s}.blocks.{d}"
+            for n in ("norm1", "norm2"):
+                sw[f"{p}.{n}.weight"] = 1 + normal(c)
+                sw[f"{p}.{n}.bias"] = normal(c)
+            for n, (o, i) in (("attn.qkv", (3 * c, c)),
+                              ("attn.proj", (c, c)),
+                              ("mlp.fc1", (4 * c, c)),
+                              ("mlp.fc2", (c, 4 * c))):
+                sw[f"{p}.{n}.weight"] = normal(o, i)
+                sw[f"{p}.{n}.bias"] = normal(o)
+            sw[f"{p}.attn.relative_position_bias_table"] = normal(
+                169, heads[s], scale=0.5)
+    np.savez(out_dir / "resnet50.npz", **res)
+    np.savez(out_dir / "swin_tiny.npz", **sw)
+    return res, sw
+
+
+def pretrained_front(torch, dev, counters, work):
+    """``create_train_state`` with NETWORK.PRETRAINED_BACKBONE on fake
+    backbone files of the real shapes: every grafted tensor equal to its
+    source; then one training step from the grafted state (batch
+    FRONT_BATCH, 1 view), its C, D and E calls held."""
+    from swinvox_tpu_torch.config import default_config
+    from swinvox_tpu_torch.models.pretrained import (
+        convert_timm_swin_tiny,
+        convert_torch_resnet50_trunk,
+    )
+    from swinvox_tpu_torch.train.state import create_train_state
+    from swinvox_tpu_torch.train.steps import make_train_step
+
+    bdir = work / "backbones"
+    bdir.mkdir()
+    res_sd, swin_sd = fake_backbones(bdir)
+    cfg = default_config()
+    cfg.NETWORK.INIT_SCHEME = "standard"
+    cfg.NETWORK.PRETRAINED_BACKBONE = str(bdir)
+    state, opts = create_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                     device=dev)
+    n = 0
+    enc = state.model.encoder
+    for part, conv in ((enc.resnet, convert_torch_resnet50_trunk(res_sd)),
+                       (enc.swin, convert_timm_swin_tiny(swin_sd))):
+        have = part.state_dict()
+        for name, arr in conv.items():
+            if not np.array_equal(have[name].cpu().numpy(), arr):
+                raise AssertionError(f"grafted {name} differs from its "
+                                     "source")
+            n += 1
+    rng = np.random.default_rng(SEED + 31)
+    img = rng.standard_normal((FRONT_BATCH, 1, 224, 224, 3)).astype(
+        np.float32)
+    vol = (rng.random((FRONT_BATCH, 32, 32, 32)) < 0.3).astype(np.uint8)
+    step = make_train_step(state.model, opts)
+    with front_recorders(torch, counters) as recs:
+        _, metrics = step(state, img, vol,
+                          torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want = want_front(cfg, FRONT_BATCH, 1, 1, 0)
+    if launches != want:
+        raise AssertionError(f"pretrained step launches {launches} != {want}")
+    held = hold_front_calls(torch, "pretrained start", recs, launches)
+    loss = float(metrics["total_loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"pretrained start: loss {loss}")
+    log(f"pretrained graft: {n} tensors (ResNet-50 trunk and Swin-Tiny from "
+        f".npz) equal to their sources; one step from it, loss {loss:.6f}, "
+        f"launches {launches}")
+    return {"grafted": n, "loss": loss, "launches": launches, "held": held}
+
+
+def front_ends_phase(torch, dev, card, report):
+    """Phase 17 (see the top); its fixtures and checkpoints live in a
+    temporary directory outside the repo, removed even on failure."""
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="swinvox_chip_smoke_front_"))
+    try:
+        return _front_ends_phase(torch, dev, card, report, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _front_ends_phase(torch, dev, card, report, work):
+    from swinvox_tpu_torch.cli import runner
+    from swinvox_tpu_torch.config import default_config
+    from swinvox_tpu_torch.data.pipeline import build_loader
+    from swinvox_tpu_torch.data.synthetic import (
+        generate_dataset,
+        generate_pascal3d_dataset,
+        generate_pix3d_dataset,
+    )
+    from swinvox_tpu_torch.data.taxonomy import DatasetType
+    from swinvox_tpu_torch.models.swinvox import SwinVoxModel
+    from swinvox_tpu_torch.ops import pallas_merger_stack as ms
+    from swinvox_tpu_torch.ops import pallas_swin_block as blk
+    from swinvox_tpu_torch.train import lr_finder, trainer
+    from swinvox_tpu_torch.train.checkpoint import save_params_only
+
+    counters = {"fused_swin_block": blk.fused_swin_block,
+                "swin_block_train_forward": blk.swin_block_train_forward,
+                "swin_block_train_backward": blk.swin_block_train_backward,
+                "merger_stack_forward": ms.merger_stack_forward,
+                "merger_stack_backward": ms.merger_stack_backward}
+    out = {}
+    t0 = time.perf_counter()
+    n_train, n_val = FRONT_SAMPLES
+    data = work / "data"
+    generate_dataset(str(data), (n_train, n_val, 0), 3,
+                     list(EVAL_CATEGORIES), seed=SEED)
+    ckpts = []
+    for i, seed in enumerate((SEED, SEED + 1)):
+        cfg = default_config()
+        cfg.NETWORK.INIT_SCHEME = "standard"
+        ckpts.append(str(work / f"model{i}.ckpt"))
+        save_params_only(ckpts[-1], SwinVoxModel.from_config(
+            cfg, torch.Generator().manual_seed(seed)))
+    log(f"front-end fixture ({2 * n_train} train, {2 * n_val} val samples, "
+        f"3 views) and two checkpoints written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = ["--dataset-root", str(data), "--platform", str(dev), "--set",
+            "NETWORK.INIT_SCHEME=standard", "--set", "CONST.NUM_WORKER=8",
+            "--set", "TEST.EVAL_BATCH_SIZE=8"]
+    cfg = default_config()
+
+    # ---- HTTP serving: serve.main with a MultiServer of two checkpoints
+    out["http"] = http_front(torch, dev, card, counters, ckpts, work)
+
+    # ---- runner --lr_find: LR_STEPS sweep steps at batch FRONT_BATCH
+    real_make, real_suggest = trainer.make_train_step, lr_finder.suggest_lr
+    spans, seen = [], {}
+
+    def timed_make(*a, **k):
+        step = real_make(*a, **k)
+
+        def timed(*sa, **sk):
+            t = time.perf_counter()
+            res = step(*sa, **sk)
+            torch.cuda.synchronize()
+            spans.append((t, time.perf_counter()))
+            return res
+        return timed
+
+    def suggest(lrs, losses):
+        seen.update(lrs=list(lrs), losses=list(losses),
+                    suggestion=real_suggest(lrs, losses))
+        return seen["suggestion"]
+
+    lr_finder.make_train_step, lr_finder.suggest_lr = timed_make, suggest
+    try:
+        with front_recorders(torch, counters) as recs:
+            wall = front_runner(torch, base + [
+                "--lr_find", "--batch-size", str(FRONT_BATCH), "--n-views",
+                "1", "--out", str(work / "lr"), "--set",
+                f"LR_FINDER.NUM_BATCHES_TO_TEST={LR_STEPS}"], "--lr_find")
+        launches = {k: f.launches for k, f in counters.items()}
+    finally:
+        lr_finder.make_train_step = real_make
+        lr_finder.suggest_lr = real_suggest
+    held = hold_front_calls(torch, "--lr_find", recs, launches)
+    want = want_front(cfg, FRONT_BATCH, 1, LR_STEPS, 0)
+    if (launches != want or len(seen.get("losses", ())) != LR_STEPS
+            or not all(np.isfinite(seen["losses"]))):
+        raise AssertionError(f"--lr_find: launches {launches} (want {want})"
+                             f", losses {seen.get('losses')}")
+    rec_rate = (len(spans) - 1) / (spans[-1][0] - spans[0][0])
+    spans.clear()
+    lr_finder.make_train_step = timed_make
+    try:
+        with counted(counters):
+            wall_timed = front_runner(torch, base + [
+                "--lr_find", "--batch-size", str(FRONT_BATCH), "--n-views",
+                "1", "--out", str(work / "lr-timed"), "--set",
+                f"LR_FINDER.NUM_BATCHES_TO_TEST={LR_STEPS}"], "--lr_find")
+        timed_launches = {k: f.launches for k, f in counters.items()}
+    finally:
+        lr_finder.make_train_step = real_make
+    if timed_launches != want:
+        raise AssertionError(f"--lr_find, unrecorded: launches "
+                             f"{timed_launches} != {want}")
+    out["lr_find"] = {"wall_s": wall, "launches": launches, "held": held,
+                      "steps_per_s_recorded": rec_rate,
+                      "timed": {"wall_s": wall_timed,
+                                "launches": timed_launches},
+                      "lrs": seen["lrs"], "smoothed_losses": seen["losses"],
+                      "suggestion": seen["suggestion"],
+                      "steps_per_s": (len(spans) - 1) / (
+                          spans[-1][0] - spans[0][0]),
+                      "step_ms": summary([(b - a) * 1e3 for a, b in spans])}
+    log(f"runner --lr_find: {LR_STEPS} steps at batch {FRONT_BATCH}, 1 view;"
+        f" suggested LR {seen['suggestion']:.4g}; smoothed losses "
+        + ", ".join(f"{v:.5f}" for v in seen["losses"])
+        + f"; {out['lr_find']['steps_per_s']:.3f} steps/s by step starts "
+        f"in a second run, unrecorded ({rec_rate:.3f} with every call "
+        f"recorded), step ms median {out['lr_find']['step_ms']['median']:.3f}"
+        f"; walls {wall:.1f} / {wall_timed:.1f} s; launches {launches}; "
+        f"on {card}")
+
+    # ---- runner --tune: 2 trials of 1 epoch (batch 32 or 64, 1 view)
+    tune_out = work / "tune"
+    with front_recorders(torch, counters) as recs:
+        wall = front_runner(torch, base + [
+            "--tune", "--tune-trials", "2", "--tune-epochs", "1",
+            "--n-views", "1", "--out", str(tune_out)], "--tune")
+    launches = {k: f.launches for k, f in counters.items()}
+    best = json.loads((tune_out / "config_best.json").read_text())
+    states = [t["state"] for t in best["trials"]]
+    if len(states) != 2 or "FAILED" in states:  # a FAILED trial hides a fault
+        raise AssertionError(f"--tune trials {best['trials']}")
+    want = dict.fromkeys(FRONT_COUNTERS, 0)
+    for t in best["trials"]:
+        b = t["params"]["CONST.BATCH_SIZE"]
+        w = want_front(cfg, b, 1, 2 * n_train // b, 2 * n_val // 8)
+        want = {k: want[k] + w[k] for k in want}
+    if launches != want:
+        raise AssertionError(f"--tune launches {launches} != {want}")
+    held = hold_front_calls(torch, "--tune", recs, launches)
+    out["tune"] = {"wall_s": wall, "trials": best["trials"],
+                   "best_params": best["best_params"],
+                   "best_value": best["best_value"], "launches": launches,
+                   "held": held}
+    log(f"runner --tune: trials " + "; ".join(
+        f"{t['number']} {t['params']} {t['state']} IoU {t['values']}"
+        for t in best["trials"]) + f"; config_best.json written; wall "
+        f"{wall:.1f} s; launches {launches}")
+
+    # ---- train_net under TRAIN.DEVICE_AUGMENT with --profile, every call
+    # held; then the same epoch timed, unrecorded and unprofiled, with the
+    # augmentation on the card and with the host transform
+    aug = {}
+    real_aug = trainer.apply_device_augment
+
+    def kept_aug(host, c, device=None):
+        images = real_aug(host, c, device)
+        aug.setdefault("first", (host, images.cpu().numpy()))
+        return images
+
+    n_steps = 2 * n_train // FRONT_BATCH
+    want = want_front(cfg, FRONT_BATCH, 3, n_steps, 2 * n_val // 8)
+    walls = {}
+    for name, on in (("held", True), ("device", True), ("host", False)):
+        argv = base + ["--batch-size", str(FRONT_BATCH), "--epoch", "1",
+                       "--n-views", "3", "--out", str(work / name), "--set",
+                       "TRAIN.LOG_EVERY=1", "--set",
+                       f"TRAIN.DEVICE_AUGMENT={str(on).lower()}"]
+        spans.clear()
+        if name == "held":
+            argv.append("--profile")
+            trainer.apply_device_augment = kept_aug
+            ctx = front_recorders(torch, counters)
+        else:
+            trainer.make_train_step = timed_make
+            ctx = counted(counters)
+        try:
+            with ctx as recs:
+                wall = front_runner(torch, argv, f"train {name}")
+            launches = {k: f.launches for k, f in counters.items()}
+        finally:
+            trainer.make_train_step = real_make
+            trainer.apply_device_augment = real_aug
+        if launches != want:
+            raise AssertionError(f"train {name}: launches {launches} != "
+                                 f"{want}")
+        if name != "held":
+            walls[name] = {"wall_s": wall, "launches": launches,
+                           "iteration_ms": summary([
+                               (b[0] - a[0]) * 1e3
+                               for a, b in zip(spans, spans[1:])]),
+                           "step_ms": summary([(b - a) * 1e3
+                                               for a, b in spans])}
+            continue
+        held = hold_front_calls(torch, "train_net device augment", recs,
+                                launches)
+        host_cfg = runner.build_config(runner.get_args_from_command_line(
+            argv))
+        host_cfg.TRAIN.DEVICE_AUGMENT = False
+        loader = build_loader(host_cfg, DatasetType.TRAIN)
+        want_img = next(iter(loader)).images
+        loader.close()
+        host, got_img = aug["first"]
+        diff = np.abs(got_img - want_img)
+        bad = diff > AUG_ATOL + AUG_RTOL * np.abs(want_img)
+        if host["images"].dtype != np.uint8 or got_img.shape != \
+                want_img.shape or bad.any():
+            raise AssertionError(f"device augmentation vs host transform: "
+                                 f"{host['images'].dtype}, {got_img.shape}, "
+                                 f"{int(bad.sum())} values apart, max "
+                                 f"{float(diff.max())}")
+        traces = list((work / name / "profile").glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"--profile wrote {traces}")
+        kernels = [e for e in json.loads(traces[0].read_text())["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        out["device_augment"] = {
+            "launches": launches, "held": held,
+            "augment_max_abs_vs_host": float(diff.max()),
+            "profile_trace_mb": traces[0].stat().st_size / 1e6,
+            "profile_kernel_events": len(kernels)}
+        log(f"train_net TRAIN.DEVICE_AUGMENT --profile: the first batch's "
+            f"images (uint8 {host['images'].shape} to the card) vs the host "
+            f"transform of the same draws: max abs {float(diff.max()):.3g} "
+            f"(atol {AUG_ATOL}, rtol {AUG_RTOL}); trace {traces[0].name}, "
+            f"{out['device_augment']['profile_trace_mb']:.1f} MB, "
+            f"{len(kernels)} kernel events; launches {launches}")
+    out["augment_walls"] = walls
+    log(f"train_net batch {FRONT_BATCH}, 3 views, {n_steps} steps, "
+        "unrecorded: iteration wall ms (step start to step start, median of "
+        f"{n_steps - 1}) with the augmentation on the card "
+        f"{walls['device']['iteration_ms']['median']:.3f}, host transform "
+        f"{walls['host']['iteration_ms']['median']:.3f}; step ms median "
+        f"{walls['device']['step_ms']['median']:.3f} / "
+        f"{walls['host']['step_ms']['median']:.3f}; on {card}")
+
+    # ---- the pretrained start
+    out["pretrained"] = pretrained_front(torch, dev, counters, work)
+
+    # ---- runner --test on the Pix3D and Pascal3D fixtures
+    out["cross"] = {}
+    for name, gen in (("Pix3D", generate_pix3d_dataset),
+                      ("Pascal3D", generate_pascal3d_dataset)):
+        ccfg = gen(str(work / name), CROSS_SAMPLES, seed=SEED)
+        (work / f"{name}.json").write_text(ccfg.to_json())
+        with front_recorders(torch, counters) as recs:
+            wall = front_runner(torch, base + [
+                "--test", "--weights", ckpts[0], "--config",
+                str(work / f"{name}.json"), "--out",
+                str(work / f"{name}-out")], f"--test {name}")
+        launches = {k: f.launches for k, f in counters.items()}
+        want = want_front(cfg, 1, 1, 0, -(-CROSS_SAMPLES // 8))
+        if launches != want:
+            raise AssertionError(f"--test {name}: launches {launches} != "
+                                 f"{want}")
+        held = hold_front_calls(torch, f"--test {name}", recs, launches)
+        (run,) = list((work / f"{name}-out").iterdir())
+        rows = [json.loads(line) for line in
+                (run / "logs" / "test.jsonl").read_text().splitlines()]
+        iou = [r["value"] for r in rows if r["tag"] == "Refiner/IoU"]
+        if len(iou) != 1 or not 0.0 <= iou[0] <= 1.0:
+            raise AssertionError(f"--test {name}: IoU {iou}")
+        out["cross"][name] = {"iou": iou[0], "wall_s": wall,
+                              "launches": launches, "held": held}
+        log(f"runner --test {name}: {CROSS_SAMPLES} samples (bbox crop), "
+            f"IoU {iou[0]:.4f}, wall {wall:.1f} s; launches {launches}")
+
+    runs = [out["http"], out["lr_find"], out["lr_find"]["timed"], out["tune"],
+            out["device_augment"],
+            *walls.values(), out["pretrained"], *out["cross"].values()]
+    out["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       for k in FRONT_COUNTERS}
+    report["front_ends"] = out
+    return out
+
+
 def eval_counters(rw, blk, fm, mi, wa):
     """The launch counters phase 14 reads."""
     return {"rewindow": rw.rewindow,
@@ -3058,7 +3897,8 @@ def main(argv) -> int:
 
     modes = {"--eval-only": "eval", "--merger-stack": "merger",
              "--merger-conv": "merger_conv", "--wmsa-down1": "wmsa_down1",
-             "--rewindow-wattn": "rewindow_wattn"}
+             "--rewindow-wattn": "rewindow_wattn",
+             "--front-ends": "front_ends"}
     if argv and (len(argv) > 1 or argv[0] not in modes):
         print(f"usage: chip_smoke.py [{' | '.join(modes)}], not {argv}",
               file=sys.stderr)
@@ -3119,6 +3959,8 @@ def main(argv) -> int:
             merger_conv_phase(torch, dev, card, report)
         elif argv == ["--wmsa-down1"]:
             wmsa_down1_phase(torch, dev, card, report)
+        elif argv == ["--front-ends"]:
+            front_ends_phase(torch, dev, card, report)
         else:
             out_dir = ROOT / "chiprun_out"
             out_dir.mkdir(exist_ok=True)
@@ -3510,6 +4352,10 @@ def main(argv) -> int:
     tr_n = {k: sum(r["launches"][k] for r in tr.values())
             for k in tr_counters}
 
+    # ---- 17. the front ends -------------------------------------------------
+    torch.cuda.empty_cache()
+    fe_n = front_ends_phase(torch, dev, card, report)["launches"]
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -3534,28 +4380,31 @@ def main(argv) -> int:
         ("fused_swin_block", "swinvox_tpu_torch/csrc/swin_block.cu",
          "swinvox_tpu/ops/pallas_swin_block.py:58",
          launches["fused_swin_block"] + ev_n["fused_swin_block"]
-         + tr_n["fused_swin_block"],
+         + tr_n["fused_swin_block"] + fe_n["fused_swin_block"],
          report["fused_swin_block"]["max_abs_err"], None,
          report["fused_swin_block"]["ms"],
          report["fused_swin_block"]["plain_ms"], bound(b_flop, b_bytes), None),
         ("swin_block_train_forward", "swinvox_tpu_torch/csrc/swin_block.cu",
          "swinvox_tpu/ops/pallas_swin_block.py:400",
          t1["swin_block_train_forward"] + t3["swin_block_train_forward"]
-         + tr_n["swin_block_train_forward"],
+         + tr_n["swin_block_train_forward"]
+         + fe_n["swin_block_train_forward"],
          sw["worst"]["out"], None, sw["fwd_ms"], sw["fwd_plain_ms"],
          (sw["fwd_bound_ms"], sw["fwd_bound_by"]), None),
         ("swin_block_train_backward",
          "swinvox_tpu_torch/csrc/swin_block_train.cu",
          "swinvox_tpu/ops/pallas_swin_block.py:508",
          t1["swin_block_train_backward"] + t3["swin_block_train_backward"]
-         + tr_n["swin_block_train_backward"],
+         + tr_n["swin_block_train_backward"]
+         + fe_n["swin_block_train_backward"],
          sw["worst"]["dx"], sw["worst"]["grad_rel_l2"], sw["bwd_ms"],
          sw["bwd_plain_ms"],
          (sw["bwd_bound_ms"], sw["bwd_bound_by"]), None),
         ("merger_stack_forward", "swinvox_tpu_torch/csrc/merger_stack.cu",
          "swinvox_tpu/ops/pallas_merger_stack.py:209",
          t1["merger_stack_forward"] + t3["merger_stack_forward"]
-         + tr_n["merger_stack_forward"],
+         + tr_n["merger_stack_forward"]
+         + fe_n["merger_stack_forward"],
          report["merger_stack"]["worst"]["fwd_max_abs"], None,
          mst[n1]["fwd_ms"],
          mst[n1]["fwd_plain_ms"],
@@ -3563,7 +4412,8 @@ def main(argv) -> int:
         ("merger_stack_backward", "swinvox_tpu_torch/csrc/merger_stack.cu",
          "swinvox_tpu/ops/pallas_merger_stack.py:386",
          t1["merger_stack_backward"] + t3["merger_stack_backward"]
-         + tr_n["merger_stack_backward"],
+         + tr_n["merger_stack_backward"]
+         + fe_n["merger_stack_backward"],
          report["merger_stack"]["worst"]["dx_max_abs"],
          report["merger_stack"]["worst"]["bwd_rel_l2"], mst[n3]["bwd_ms"],
          mst[n3]["bwd_plain_ms"],

@@ -1,12 +1,13 @@
-"""swinvox_tpu_torch — swinvox_tpu's serving, training and evaluation in
-PyTorch + CUDA.
+"""swinvox_tpu_torch — swinvox_tpu's serving, training, evaluation and
+their front ends in PyTorch + CUDA.
 
 A port of the JAX package ``swinvox_tpu`` for one NVIDIA H100 (Hopper,
 sm_90a).  The JAX package stays the reference: every module here has a
 counterpart at the same relative path there, and the tests feed both the
 same weights and inputs.
 
-  * ``models/``  — ``SwinVoxModel`` and its parts, inference and training;
+  * ``models/``  — ``SwinVoxModel`` and its parts, inference and training,
+                   and the pretrained-backbone graft (``pretrained``);
   * ``ops/``     — the window-attention core, the losses and the
                    hand-written kernels (``rewindow``, the fused Swin block
                    for inference and training, the fused W-MSA, the merger
@@ -16,16 +17,21 @@ same weights and inputs.
   * ``kernels/`` — builds ``csrc/*.cu`` with nvcc at first use;
   * ``train/``   — per-module optimizers, ``TrainState``,
                    ``create_train_state``, ``make_train_step``, the
-                   evaluator, ``train_net``, ``test_net`` and checkpoints;
-  * ``cli/``     — the runner (train mode and ``--test``);
+                   evaluator, ``train_net``, ``test_net``, checkpoints,
+                   the LR finder and the tuner;
+  * ``cli/``     — the runner (train mode, ``--test``, ``--lr_find``,
+                   ``--tune``, ``--profile``) and the quickstart;
+  * ``utils/``   — the JSONL metrics log and TensorBoard event files;
   * ``convert``  — the JAX package's variables and whole ``TrainState``
                    in, the port's out in the JAX layout;
   * ``config``   — the serving, training and evaluation fields of the
                    JAX package's ``Config``;
-  * ``data``     — image files in, the train and eval transforms, binvox,
-                   the ShapeNet loaders and a synthetic fixture;
+  * ``data``     — image files in, the train and eval transforms and
+                   their on-card form, binvox, the ShapeNet, Pix3D and
+                   Pascal3D loaders and synthetic fixtures of each;
   * ``infer``    — ``Predictor``;
-  * ``serve``    — ``BatchingServer``, micro-batching around a predictor.
+  * ``serve``    — ``BatchingServer``, micro-batching around a predictor,
+                   ``MultiServer`` and the HTTP front end.
 
 Layouts at the public functions follow the JAX package: images
 ``[B, N, H, W, 3]``, window-major tokens ``[nW, T, C]``, volumes

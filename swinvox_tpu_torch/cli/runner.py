@@ -1,12 +1,15 @@
-"""CLI entry point of the port, the training and evaluation paths of
-``swinvox_tpu/cli/runner.py``:
+"""CLI entry point of the port, counterpart of ``swinvox_tpu/cli/runner.py``:
 
   python -m swinvox_tpu_torch.cli.runner [--batch-size B] [--epoch E] \
-      [--n-views N] [--weights W.ckpt] [--rand] [--set KEY=VALUE ...] \
-      [--config JSON] [--dataset-root DIR] [--out DIR] [--platform cpu|cuda]
+      [--n-views N] [--weights W.ckpt] [--rand] [--profile] \
+      [--set KEY=VALUE ...] [--config JSON] [--dataset-root DIR] \
+      [--out DIR] [--platform cpu|cuda]
   python -m swinvox_tpu_torch.cli.runner --test --weights W.ckpt \
       [--n-views N] [--set KEY=VALUE ...] [--config JSON] \
       [--dataset-root DIR] [--out DIR] [--platform cpu|cuda]
+  python -m swinvox_tpu_torch.cli.runner --lr_find [--batch-size B] ...
+  python -m swinvox_tpu_torch.cli.runner --tune [--tune-trials 3] \
+      [--tune-epochs 20] ...
 
 Without ``--test`` it trains (``train_net``): ``--batch-size`` sets the
 training batch ``CONST.BATCH_SIZE``, ``--epoch`` ``TRAIN.NUM_EPOCHS``,
@@ -16,10 +19,15 @@ runner does).  With ``--test`` it evaluates the checkpoint ``--weights``
 (``test_net``) in batches of ``TEST.EVAL_BATCH_SIZE`` (``--set
 TEST.EVAL_BATCH_SIZE=N``); ``--batch-size`` is refused there, so it is
 never silently ignored.  Checkpoints are either package's files (full or
-params-only).  The model runs on ``cuda`` unless ``--platform`` names
+params-only).  ``--profile`` traces batches 2-6 of the first training
+epoch into ``DIR.OUT_PATH/profile``.  ``--lr_find`` runs the learning-rate
+range test (``train/lr_finder.py``: ``LR_FINDER.*``, the plot and the
+suggestion); ``--tune`` (alias ``--optuna_tune``) the hyperparameter
+study (``train/tune.py``: ``--tune-trials`` trials of ``--tune-epochs``
+epochs, ``DIR.OUT_PATH/config_best.json``); under either, ``--weights``
+does not resume.  The model runs on ``cuda`` unless ``--platform`` names
 another device (``--platform cpu`` for a host-only run); there is no
-silent fallback.  The LR finder (``--lr_find``) and tuning (``--tune``)
-are not ported and exit with an error.
+silent fallback.
 """
 
 from __future__ import annotations
@@ -43,10 +51,17 @@ def get_args_from_command_line(argv=None):
     parser.add_argument("--epoch", dest="epoch", default=None, type=int,
                         help="number of epochs")
     parser.add_argument("--lr_find", dest="lr_find", action="store_true",
-                        help="run the learning-rate finder (not ported)")
+                        help="run the learning-rate finder")
     parser.add_argument("--optuna_tune", "--tune", dest="tune",
                         action="store_true",
-                        help="run hyperparameter tuning (not ported)")
+                        help="run hyperparameter tuning")
+    parser.add_argument("--tune-trials", dest="tune_trials", default=3,
+                        type=int, help="trials of --tune")
+    parser.add_argument("--tune-epochs", dest="tune_epochs", default=20,
+                        type=int, help="epochs of each --tune trial")
+    parser.add_argument("--profile", dest="profile", action="store_true",
+                        help="trace a few train steps with torch.profiler "
+                        "into DIR.OUT_PATH/profile")
     parser.add_argument("--weights", dest="weights", default=None,
                         help="initialize network from a checkpoint")
     parser.add_argument("--out", dest="out_path", default=None,
@@ -102,8 +117,10 @@ def build_config(args):
         cfg.DIR.OUT_PATH = args.out_path
     if args.weights is not None:
         cfg.CONST.WEIGHTS = args.weights
-        if not args.test:
+        if not (args.test or args.lr_find or args.tune):
             cfg.TRAIN.RESUME_TRAIN = True
+    if args.profile:
+        cfg.DIR.PROFILE_DIR = os.path.join(cfg.DIR.OUT_PATH, "profile")
     if args.randomize:
         cfg.CONST.RNG_SEED = int(time.time()) % (2**31)
     for ov in args.overrides:
@@ -127,9 +144,17 @@ def main(argv=None) -> int:
     args = get_args_from_command_line(argv)
     cfg = build_config(args)
     cfg.validate()
-    if args.lr_find or args.tune:
-        logging.error("the LR finder and tuning are not ported yet")
-        return 2
+    if args.lr_find:
+        from swinvox_tpu_torch.train.lr_finder import find_lr
+
+        find_lr(cfg, device=args.platform)
+        return 0
+    if args.tune:
+        from swinvox_tpu_torch.train.tune import tune
+
+        tune(cfg, n_trials=args.tune_trials, n_epochs=args.tune_epochs,
+             device=args.platform)
+        return 0
     if args.test:
         if not cfg.CONST.WEIGHTS:
             logging.error("Please specify the file path of checkpoint!")

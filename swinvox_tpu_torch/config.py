@@ -15,21 +15,34 @@ only pick between XLA formulations of one function
 whatever their value, because the port computes the same function either
 way; ``CONST.DEVICE`` is read by neither package.  Fields that name a
 feature the port lacks are refused, when not at their default, where
-that feature would be used: ``NETWORK.PRETRAINED_BACKBONE`` by
-``create_train_state``, ``DIR.PROFILE_DIR`` and ``TRAIN.DEVICE_AUGMENT``
-by ``train_net``, ``CONST.DEVICE_SELECT`` and ``PARALLEL.*`` beyond one
-device by ``train_net`` and ``test_net``; ``LR_FINDER.*`` is read only
-under ``--lr_find``, which the runner refuses.  The Pascal3D and Pix3D
-paths wait for their dataset indexes (``DATASET.TEST_DATASET`` names
-only ShapeNet in the port).
+that feature would be used: ``CONST.DEVICE_SELECT`` and ``PARALLEL.*``
+beyond one device by ``train_net`` and ``test_net``.
+
+``resolve_data_path`` finds the default split files
+(``./datasets/*.json``) in the repository's own ``datasets/`` folder
+when the process runs elsewhere.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Tuple
+
+_DATASETS_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "datasets")
+
+
+def resolve_data_path(path: str) -> str:
+    """``path`` when it exists, else the same-named file of the
+    repository's ``datasets/`` when there is one (the default taxonomy
+    paths are relative to the working directory), else ``path``."""
+    if os.path.exists(path):
+        return path
+    fallback = os.path.join(_DATASETS_DIR, os.path.basename(path))
+    return fallback if os.path.isfile(fallback) else path
 
 
 @dataclass
@@ -83,7 +96,7 @@ class DirConfig:
     OUT_PATH: str = "./output"
     # a folder of background images for the train transform (optional)
     RANDOM_BG_PATH: str = ""
-    # the JAX trainer's profiler traces: not ported, train_net refuses it
+    # train_net traces batches 2-6 of its first epoch here (--profile)
     PROFILE_DIR: str = ""
 
 
@@ -139,8 +152,8 @@ class NetworkConfig:
     USE_BAND2D_MERGER: bool = False
     REFINER_UNROLLED_CONV: bool = False
     PALLAS_INTERPRET: bool = False
-    # pretrained backbone weights: not ported, create_train_state
-    # refuses a path
+    # a directory of pretrained backbone weights (resnet50.{npz,pth,pt},
+    # swin_tiny.*) that create_train_state grafts onto the encoder
     PRETRAINED_BACKBONE: str = ""
     SWIN_DEPTHS: Tuple[int, ...] = (2, 2, 6, 2)
     RESNET_STAGE_DEPTHS: Tuple[int, int, int] = (3, 4, 6)
@@ -182,8 +195,8 @@ class TrainConfig:
     LOG_EVERY: int = 10
     # sequential micro-batches per step, gradients averaged
     GRAD_ACCUM_STEPS: int = 1
-    # the JAX package's on-device augmentation: not ported, train_net
-    # refuses it
+    # the train and eval augmentation on the card from raw pixels
+    # (data/device_augment.py)
     DEVICE_AUGMENT: bool = False
     # optax's fused Adam in JAX: the same update, accepted either way
     FUSED_OPTIMIZER: bool = False

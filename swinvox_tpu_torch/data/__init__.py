@@ -1,15 +1,17 @@
-"""Host-side data: image files in, transforms, binvox in and out, and
-the ShapeNet splits.
+"""Data: image files in, transforms, binvox in and out, and the dataset
+splits.
 
 Counterparts of ``swinvox_tpu.data.pipeline.load_image_bgr`` (here),
-``data/transforms.py`` (the train pipeline and the eval transform,
-re-exported here), ``data/binvox.py`` (the binvox codec),
-``data/taxonomy.py`` (the ShapeNet index), ``data/pipeline.py`` (the
-train, validation and test loaders) and ``data/synthetic.py`` (the
-ShapeNet-format fixture), in plain numpy and PIL (the JAX package's
-optional C codecs are not ported; the results are its numpy path's, see
-``tests/test_torch_serve.py``, ``tests/test_torch_eval.py`` and
-``tests/test_torch_train_net.py``).
+``data/transforms.py`` (the train pipeline, the eval transform and their
+parameter draws; the eval transform re-exported here),
+``data/device_augment.py`` (the same augmentation on the card),
+``data/binvox.py`` (the binvox codec), ``data/taxonomy.py`` (the
+ShapeNet, Pascal3D and Pix3D indexes), ``data/pipeline.py`` (the train,
+validation and test loaders) and ``data/synthetic.py`` (fixtures in the
+three datasets' formats), in plain numpy and PIL on the host (the JAX
+package's optional C codecs are not ported; the results are its numpy
+path's, see ``tests/test_torch_serve.py``, ``tests/test_torch_eval.py``,
+``tests/test_torch_train_net.py`` and ``tests/test_torch_cross_datasets.py``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Host data pipeline: decode, transform, batch, prefetch.
 
 Counterpart of ``swinvox_tpu/data/pipeline.py`` for one process (its
-multi-host sharding and device augmentation are not ported): a
-thread-pool producer decodes samples (PNG decode and numpy transforms
-release the GIL) into batches that a bounded queue keeps ahead of the
-consumer.  Images decode to float32 BGR(A) / 255.
+multi-host sharding is not ported): a thread-pool producer decodes
+samples (PNG decode and numpy transforms release the GIL) into batches
+that a bounded queue keeps ahead of the consumer.  Images decode to
+float32 BGR(A) / 255.
 
 Views (reference ``utils/data_loaders.py:61-67``): each sample draws its
 own generator ``default_rng(SeedSequence([seed, epoch, idx]))``; the
@@ -16,6 +16,13 @@ through the eval transform.  The train loader shuffles with
 ``default_rng(SeedSequence([seed, epoch]))`` and drops the last partial
 batch; ``set_epoch`` and ``set_n_views`` move both, so a resumed run
 draws what an uninterrupted one draws.
+
+Under ``TRAIN.DEVICE_AUGMENT`` (every split of a source without bounding
+boxes, and without ``DIR.RANDOM_BG_PATH``; otherwise the host transform
+stays) a sample is decoded only (``VoxelDataset.load_raw``): its raw
+renders ship as uint8 with the augmentation's parameters drawn from the
+same generator in the same order, stacked into ``Batch.aug``, for
+``data/device_augment.py`` to apply on the card.
 
 An iteration's producer thread and its pool stop when the iterator is
 closed, garbage-collected or raises, or when ``BatchLoader.close`` is
@@ -42,13 +49,23 @@ from swinvox_tpu_torch.data.taxonomy import (
     DatasetType,
     SampleRecord,
 )
-from swinvox_tpu_torch.data.transforms import eval_transform, train_transform
+from swinvox_tpu_torch.data.transforms import (
+    draw_eval_params,
+    draw_train_params,
+    eval_transform,
+    train_transform,
+)
 
 log = logging.getLogger(__name__)
 
 
 def load_volume(path: str) -> np.ndarray:
-    """Decodes a .binvox ground-truth volume to float32 {0, 1}."""
+    """Decodes a ground-truth volume (.binvox, or .mat with a ``Volume``)
+    to float32."""
+    if path.endswith(".mat"):
+        import scipy.io
+
+        return scipy.io.loadmat(path)["Volume"].astype(np.float32)
     with open(path, "rb") as f:
         return read_as_3d_array(f).data.astype(np.float32)
 
@@ -57,8 +74,13 @@ def load_volume(path: str) -> np.ndarray:
 class Batch:
     taxonomy_ids: List[str]
     sample_names: List[str]
-    images: np.ndarray  # [B, N, H, W, 3] float32, normalized
+    # [B, N, H, W, 3] float32, normalized; under device augmentation the
+    # raw decoded [B, N, H, W, 3|4] as uint8
+    images: np.ndarray
     volumes: np.ndarray  # [B, D, H, W] float32 {0, 1}
+    # device augmentation only: bg_color [B, 3], color_A/B [B, 3, 3],
+    # color_v [B, 3], flips [B, N] (data/device_augment.py)
+    aug: Optional[dict] = None
 
 
 class VoxelDataset:
@@ -66,13 +88,14 @@ class VoxelDataset:
 
     def __init__(self, records: Sequence[SampleRecord], split: DatasetType,
                  n_views: int, cfg, train_augment: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, device_augment: bool = False):
         self.records = list(records)
         self.split = split
         self.n_views = n_views
         self.cfg = cfg
         self.train_augment = train_augment
         self.seed = seed
+        self.device_augment = device_augment
         self.bg_files: List[str] = []
         if train_augment and cfg.DIR.RANDOM_BG_PATH:
             root = cfg.DIR.RANDOM_BG_PATH
@@ -115,6 +138,30 @@ class VoxelDataset:
         else:
             images = eval_transform(images, self.cfg, rec.bounding_box)
         return rec.taxonomy_id, rec.sample_name, images, volume
+
+    def load_raw(self, idx: int, epoch: int = 0
+                 ) -> Tuple[str, str, np.ndarray, np.ndarray, dict]:
+        """Decode only, for the augmentation on the card: the views as
+        uint8 (``round(x * 255)`` inverts the decoder's /255 for 8-bit
+        sources), the volume, and the parameters ``load`` would draw from
+        the same generator (``draw_train_params`` for the train split,
+        ``draw_eval_params`` otherwise).  Refuses a bounding box and
+        background images, as the JAX package does."""
+        rec = self.records[idx]
+        if rec.bounding_box is not None:
+            raise ValueError(
+                "device_augment does not support bbox-cropped sources")
+        if self.bg_files:
+            raise ValueError(
+                "device_augment does not support RANDOM_BG_PATH images")
+        rng, paths = self._select_views(rec, idx, epoch)
+        images = np.stack([load_image_bgr(p) for p in paths])
+        volume = load_volume(rec.volume_path)
+        draw = draw_train_params if self.train_augment else draw_eval_params
+        params = draw(self.cfg, rng, self.n_views,
+                      has_alpha=images.shape[-1] == 4)
+        images = np.round(images * 255.0).astype(np.uint8)
+        return rec.taxonomy_id, rec.sample_name, images, volume, params
 
 
 def _put_unless_stopped(q: "queue.Queue", item, stop: threading.Event) -> bool:
@@ -184,6 +231,13 @@ class BatchLoader:
         stop = threading.Event()
 
         def assemble(idxs: np.ndarray) -> Batch:
+            if self.dataset.device_augment:
+                tax, names, images, volumes, params = zip(
+                    *(self.dataset.load_raw(int(i), epoch) for i in idxs))
+                aug = {k: np.stack([p[k] for p in params])
+                       for k in params[0]}
+                return Batch(list(tax), list(names), np.stack(images),
+                             np.stack(volumes), aug)
             tax, names, images, volumes = zip(
                 *(self.dataset.load(int(i), epoch) for i in idxs))
             return Batch(list(tax), list(names), np.stack(images),
@@ -244,15 +298,21 @@ def build_loader(cfg, split: DatasetType, n_views: Optional[int] = None,
     batches of ``CONST.BATCH_SIZE`` without the last partial one, the
     others of ``DATASET.TEST_DATASET`` in file order in batches of 1 (the
     evaluator regroups samples into its own batches); ``n_views`` defaults
-    to ``CONST.N_VIEWS_RENDERING``."""
+    to ``CONST.N_VIEWS_RENDERING``.  ``TRAIN.DEVICE_AUGMENT`` ships raw
+    batches wherever the source allows it (no bounding box, no
+    ``DIR.RANDOM_BG_PATH``)."""
     train = split == DatasetType.TRAIN
     if dataset_name is None:
         dataset_name = (cfg.DATASET.TRAIN_DATASET if train
                         else cfg.DATASET.TEST_DATASET)
     index = DATASET_INDEX_MAPPING[dataset_name](cfg)
-    dataset = VoxelDataset(index.samples(split), split,
+    records = index.samples(split)
+    device_aug = (cfg.TRAIN.DEVICE_AUGMENT and not cfg.DIR.RANDOM_BG_PATH
+                  and all(r.bounding_box is None for r in records))
+    dataset = VoxelDataset(records, split,
                            n_views or cfg.CONST.N_VIEWS_RENDERING, cfg,
-                           train_augment=train, seed=seed)
+                           train_augment=train, seed=seed,
+                           device_augment=device_aug)
     return BatchLoader(
         dataset, batch_size=batch_size or (cfg.CONST.BATCH_SIZE if train
                                            else 1),

@@ -1,11 +1,16 @@
-"""Synthetic ShapeNet-format fixture.
+"""Synthetic dataset fixtures in the reference's on-disk layouts.
 
-Counterpart of ``generate_dataset`` in ``swinvox_tpu/data/synthetic.py``
-(the same files from the same seed): a taxonomy JSON, RGBA PNG renderings
-and 32^3 binvox volumes in the reference's on-disk layout.  Shapes are
+Counterpart of ``swinvox_tpu/data/synthetic.py`` (the same files from the
+same seed): ``generate_dataset`` writes a ShapeNet-format tree (a taxonomy
+JSON, RGBA PNG renderings and 32^3 binvox volumes),
+``generate_pix3d_dataset`` a Pix3D-format one (RGB PNG photos,
+``pix3d.json`` with bounding boxes, one binvox per model) and
+``generate_pascal3d_dataset`` a Pascal3D-format one (JPEG images, .mat
+annotations with a box and a CAD index, CAD binvox volumes).  Each
+returns the port's default config pointed at its tree.  Shapes are
 procedural solids (unions of boxes and ellipsoids) and each rendering is
 a shaded orthographic projection of the volume from a rotated viewpoint,
-so tests and the card can evaluate without the ShapeNet download.
+so tests and the card can train and evaluate without the downloads.
 """
 
 from __future__ import annotations
@@ -67,6 +72,100 @@ def render_view(vol: np.ndarray, angle: float, size: int = 137) -> np.ndarray:
     off = (big.shape[0] - size) // 2
     big = big[off:off + size, off:off + size]
     return (np.clip(big, 0, 1) * 255).astype(np.uint8)
+
+
+def _write_volume(vol: np.ndarray, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        write_binvox(vol, f)
+
+
+def generate_pix3d_dataset(root: str, n_samples: int = 4, seed: int = 0):
+    """Writes a Pix3D-format fixture: img/chair/<name>.png (240^2 RGB),
+    pix3d.json with a bounding box each, model/chair/<model>/model.binvox
+    and the split file Pix3D.json (every sample in ``test``)."""
+    from PIL import Image
+
+    from swinvox_tpu_torch.config import default_config
+
+    rng = np.random.default_rng(seed)
+    annotations = []
+    taxonomy = [{"taxonomy_name": "chair", "train": [], "test": []}]
+    for i in range(n_samples):
+        name = f"{i:04d}"
+        vol = _solid(rng)
+        model_name = f"IKEA_{i:04d}"
+        _write_volume(vol, os.path.join(
+            root, f"model/chair/{model_name}/model.binvox"))
+        img = render_view(vol, rng.uniform(0, 2 * np.pi), size=240)[..., :3]
+        ipath = os.path.join(root, f"img/chair/{name}.png")
+        os.makedirs(os.path.dirname(ipath), exist_ok=True)
+        Image.fromarray(img, "RGB").save(ipath)
+        annotations.append({
+            "img": f"img/chair/{name}.png",
+            "img_size": [240, 240],
+            "bbox": [40, 40, 200, 200],
+            "voxel": f"model/chair/{model_name}/voxel.mat",
+        })
+        taxonomy[0]["test"].append(name)
+    with open(os.path.join(root, "pix3d.json"), "w") as f:
+        json.dump(annotations, f)
+    tax_path = os.path.join(root, "Pix3D.json")
+    with open(tax_path, "w") as f:
+        json.dump(taxonomy, f)
+    cfg = default_config()
+    cfg.DATASET.TEST_DATASET = "Pix3D"
+    paths = cfg.DATASETS.PIX3D
+    paths.TAXONOMY_FILE_PATH = tax_path
+    paths.ANNOTATION_PATH = os.path.join(root, "pix3d.json")
+    paths.RENDERING_PATH = os.path.join(root, "img/%s/%s.%s")
+    paths.VOXEL_PATH = os.path.join(root, "model/%s/%s/%s.binvox")
+    return cfg
+
+
+def generate_pascal3d_dataset(root: str, n_samples: int = 4, seed: int = 0):
+    """Writes a Pascal3D-format fixture: two CAD volumes
+    CAD/aeroplane/{01,02}.binvox shared by the samples,
+    Images/aeroplane_imagenet/<name>.JPEG (240 x 180 noise),
+    Annotations/aeroplane_imagenet/<name>.mat (image size, one object's
+    box and CAD index) and the split file Pascal3D.json (every sample in
+    ``test``)."""
+    import scipy.io
+    from PIL import Image
+
+    from swinvox_tpu_torch.config import default_config
+
+    rng = np.random.default_rng(seed)
+    taxonomy = [{"taxonomy_name": "aeroplane", "train": [], "test": []}]
+    for cad in (1, 2):
+        _write_volume(_solid(rng),
+                      os.path.join(root, f"CAD/aeroplane/{cad:02d}.binvox"))
+    for i in range(n_samples):
+        name = f"n{i:08d}"
+        img = (rng.random((180, 240, 3)) * 255).astype(np.uint8)
+        ipath = os.path.join(root, f"Images/aeroplane_imagenet/{name}.JPEG")
+        os.makedirs(os.path.dirname(ipath), exist_ok=True)
+        Image.fromarray(img, "RGB").save(ipath)
+        apath = os.path.join(root,
+                             f"Annotations/aeroplane_imagenet/{name}.mat")
+        os.makedirs(os.path.dirname(apath), exist_ok=True)
+        record = {"imgsize": np.array([240, 180, 3]),
+                  "objects": {"cad_index": 1 + (i % 2),
+                              "bbox": np.array([30.0, 20.0, 210.0, 160.0])}}
+        scipy.io.savemat(apath, {"record": record})
+        taxonomy[0]["test"].append(name)
+    tax_path = os.path.join(root, "Pascal3D.json")
+    with open(tax_path, "w") as f:
+        json.dump(taxonomy, f)
+    cfg = default_config()
+    cfg.DATASET.TEST_DATASET = "Pascal3D"
+    paths = cfg.DATASETS.PASCAL3D
+    paths.TAXONOMY_FILE_PATH = tax_path
+    paths.ANNOTATION_PATH = os.path.join(
+        root, "Annotations/%s_imagenet/%s.mat")
+    paths.RENDERING_PATH = os.path.join(root, "Images/%s_imagenet/%s.JPEG")
+    paths.VOXEL_PATH = os.path.join(root, "CAD/%s/%02d.binvox")
+    return cfg
 
 
 def generate_dataset(

@@ -14,6 +14,13 @@ views, or per view a coin flip for the background image), color jitter
 (brightness, contrast and saturation in a random order, one draw for all
 views), PCA noise, normalization, a left-right flip per view, and one
 channel permutation for all views.
+
+``draw_train_params`` and ``draw_eval_params`` draw the same random
+numbers as the train and eval pipelines, in the same order, without
+touching a pixel: the parameters of ``data/device_augment.py``, which
+applies the pipeline on the card.  ``fold_color_affine`` composes the
+jitter, the noise, the normalization and the channel permutation into
+one per-sample affine map of the pixel and its view's mean.
 """
 
 from __future__ import annotations
@@ -244,3 +251,102 @@ def eval_transform(images: np.ndarray, cfg,
         x = bg * color + (1.0 - bg) * x[..., :3]
     return np.ascontiguousarray(normalize(x, cfg.DATASET.MEAN,
                                           cfg.DATASET.STD), np.float32)
+
+
+# ----------------------------------------------- device-augment parameters
+
+_GRAY_W = np.array([0.114, 0.587, 0.299], np.float32)  # BGR luma weights
+
+
+def draw_train_params(cfg, rng: np.random.Generator, n_views: int,
+                      has_alpha: bool) -> dict:
+    """Every random parameter of the train pipeline (no bounding box, no
+    background image), drawn in ``train_transform``'s order: the
+    background color (4-channel input only), the jitter factors and their
+    order, the noise, a flip per view, the channel permutation.  Returns
+    ``bg_color`` [3], ``color_A``, ``color_B`` [3, 3], ``color_v`` [3]
+    (``fold_color_affine``) and ``flips`` [n_views] int32."""
+    t = cfg.TRAIN
+    if has_alpha:
+        bg = np.array([rng.integers(lo, hi + 1)
+                       for lo, hi in t.RANDOM_BG_COLOR_RANGE],
+                      np.float32) / 255.0
+    else:
+        bg = np.zeros((3,), np.float32)
+    jitter_vals = np.array([
+        1.0 + rng.uniform(-t.BRIGHTNESS, t.BRIGHTNESS),
+        1.0 + rng.uniform(-t.CONTRAST, t.CONTRAST),
+        1.0 + rng.uniform(-t.SATURATION, t.SATURATION),
+    ], np.float32)
+    order = np.arange(3)
+    rng.shuffle(order)
+    alpha = rng.normal(0.0, t.NOISE_STD, size=3).astype(np.float32)
+    noise_rgb = np.sum(_NOISE_EIGVECS * alpha[None, :]
+                       * _NOISE_EIGVALS[None, :], axis=1)
+    flips = np.array([rng.integers(0, 2) for _ in range(n_views)], np.int32)
+    perm = rng.permutation(3)
+    A, B, v = fold_color_affine(
+        jitter_vals, order, noise_rgb[::-1].copy(),
+        np.asarray(cfg.DATASET.MEAN, np.float32),
+        np.asarray(cfg.DATASET.STD, np.float32), perm)
+    return {"bg_color": bg, "color_A": A, "color_B": B, "color_v": v,
+            "flips": flips}
+
+
+def fold_color_affine(jitter_vals: np.ndarray, order: np.ndarray,
+                      noise_bgr: np.ndarray, mean: np.ndarray,
+                      std: np.ndarray, perm: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The jitter (factors (brightness, contrast, saturation) applied in
+    ``order``), the noise, the normalization and the channel permutation
+    as one map ``y = A x + B x_bar + v`` of a pixel x (BGR) and its view's
+    mean pixel x_bar.  Every stage is linear in (x, x_bar): brightness
+    scales all terms; saturation applies M = aI + (1 - a) 1 w^T; contrast
+    blends toward the current stage's mean gray w^T (A + B) x_bar + w^T v;
+    noise and normalization are affine; the permutation reorders rows."""
+    w = _GRAY_W
+    ones = np.ones(3, np.float32)
+    A = np.eye(3, dtype=np.float32)
+    B = np.zeros((3, 3), np.float32)
+    v = np.zeros(3, np.float32)
+    names = ["brightness", "contrast", "saturation"]
+    for idx in order:
+        a = float(jitter_vals[idx])
+        name = names[idx]
+        if name == "brightness":
+            A, B, v = a * A, a * B, a * v
+        elif name == "saturation":
+            M = a * np.eye(3, dtype=np.float32) + (1.0 - a) * np.outer(ones, w)
+            A, B, v = M @ A, M @ B, M @ v
+        else:  # contrast
+            g_coeff = (A + B).T @ w  # the mean gray as a functional of x_bar
+            B = a * B + (1.0 - a) * np.outer(ones, g_coeff)
+            v = a * v + (1.0 - a) * float(w @ v) * ones
+            A = a * A
+    v = v + noise_bgr.astype(np.float32)
+    D = (1.0 / std).astype(np.float32)
+    A = D[:, None] * A
+    B = D[:, None] * B
+    v = D * (v - mean.astype(np.float32))
+    return A[perm], B[perm], v[perm]
+
+
+def draw_eval_params(cfg, rng: np.random.Generator, n_views: int,
+                     has_alpha: bool) -> dict:
+    """The eval pipeline's parameters (crop -> background -> normalize):
+    the background color in the JAX ``eval_transform``'s draw order, the
+    normalization as the affine map, no jitter, noise, flip or
+    permutation."""
+    if has_alpha:
+        bg = np.array([rng.integers(lo, hi + 1)
+                       for lo, hi in cfg.TEST.RANDOM_BG_COLOR_RANGE],
+                      np.float32) / 255.0
+    else:
+        bg = np.zeros((3,), np.float32)
+    std = np.asarray(cfg.DATASET.STD, np.float32)
+    mean = np.asarray(cfg.DATASET.MEAN, np.float32)
+    return {"bg_color": bg,
+            "color_A": np.diag(1.0 / std).astype(np.float32),
+            "color_B": np.zeros((3, 3), np.float32),
+            "color_v": (-mean / std).astype(np.float32),
+            "flips": np.zeros((n_views,), np.int32)}

@@ -36,8 +36,9 @@ class Predictor:
     Each forward runs with cuDNN restricted to deterministic algorithms,
     so a request's result does not depend on the batch it is served in:
     otherwise the refiner's transposed convs may take a nondeterministic
-    algorithm on a card.  The flag is process-wide in PyTorch; ``predict``
-    sets it for its own forward and puts the previous value back.
+    algorithm on a card.  The flag is process-wide in PyTorch: it holds
+    while any thread's ``predict`` runs (two servers' dispatchers run at
+    once) and comes back as it was when the last one is done.
     """
 
     def __init__(self, model: torch.nn.Module,

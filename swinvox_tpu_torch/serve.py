@@ -1,7 +1,8 @@
 """Micro-batching server: concurrent requests -> fixed-shape device batches.
 
-Counterpart of ``BatchingServer`` in ``swinvox_tpu/serve.py``, with the
-same behavior and arguments:
+Counterpart of ``swinvox_tpu/serve.py`` (``BatchingServer``,
+``MultiServer``, the HTTP front end and ``main``), with the same behavior
+and arguments:
 
     from swinvox_tpu_torch.serve import BatchingServer
 
@@ -16,19 +17,41 @@ it.  Requests with another view count are tiled cyclically or truncated
 to ``n_views``; the first request pins H and W.  The queue is bounded
 (``submit`` raises ``ServerOverloadedError`` when it is full) and
 ``timeout_ms`` fails requests that waited longer.  An exception in
-``predict`` fails that batch's futures.  The HTTP front end and the
-multi-model router of the JAX package are not ported yet.
+``predict`` fails that batch's futures.
+
+``MultiServer`` routes requests to one ``BatchingServer`` per named
+model; ``_make_http_server`` puts either behind stdlib HTTP, and
+
+    python -m swinvox_tpu_torch.serve --checkpoint [NAME=]PATH ... \
+        [--port 8000] [--host 0.0.0.0] [--batch-size 32] [--n-views N] \
+        [--max-wait-ms 5] [--max-queue 1024] [--timeout-ms T] \
+        [--platform cuda|cpu]
+
+serves ``POST /predict`` and ``POST /predict/<model>`` (an npy body of
+[N, H, W, 3] eval-transformed float32 images; the response is the npy
+[32, 32, 32] probabilities), ``GET /stats`` and ``GET /models``.  An
+unknown model answers 404, a full queue 503, a request that waited past
+``--timeout-ms`` 504, anything else that fails 400; each failure is the
+failing request's alone.  The checkpoints are either package's files
+(``Predictor.from_checkpoint``); the models run on ``cuda`` unless
+``--platform`` names another device.
 """
 
 from __future__ import annotations
 
+import argparse
+import io
+import json
+import logging
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 
 class ServerOverloadedError(RuntimeError):
@@ -183,3 +206,186 @@ class BatchingServer:
                                                     for r in reqs)
             for i, r in enumerate(reqs):
                 r.future.set_result(out[i])
+
+
+# ------------------------------------------------------------------ HTTP
+
+
+class MultiServer:
+    """Routes requests to one of several named ``BatchingServer``s (one
+    checkpoint each) sharing the process and the device; each keeps its
+    own queue and stats.  ``default`` names the model of a request that
+    names none (the first registered otherwise)."""
+
+    def __init__(self, servers, default: Optional[str] = None):
+        if not servers:
+            raise ValueError("MultiServer needs at least one model")
+        self._servers = dict(servers)
+        self.default = default if default is not None else next(iter(servers))
+        if self.default not in self._servers:
+            raise KeyError(self.default)
+
+    def __getitem__(self, name: str) -> BatchingServer:
+        return self._servers[name]
+
+    @property
+    def models(self):
+        return tuple(self._servers)
+
+    def _pick(self, model: Optional[str]) -> BatchingServer:
+        name = model if model is not None else self.default
+        try:
+            return self._servers[name]
+        except KeyError:
+            raise KeyError(f"unknown model {name!r}; available: "
+                           f"{sorted(self._servers)}") from None
+
+    def submit(self, images: np.ndarray, model: Optional[str] = None):
+        return self._pick(model).submit(images)
+
+    def predict(self, images: np.ndarray,
+                model: Optional[str] = None) -> np.ndarray:
+        return self._pick(model).predict(images)
+
+    def stats(self) -> dict:
+        return {name: srv.stats() for name, srv in self._servers.items()}
+
+    def close(self) -> None:
+        for srv in self._servers.values():
+            srv.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _make_http_server(server, port: int, host: str = "0.0.0.0"):
+    """A ``ThreadingHTTPServer`` on (host, port) (port 0: any free port,
+    ``httpd.server_address[1]``) in front of a BatchingServer or a
+    MultiServer; its handler threads are daemons."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    multi = isinstance(server, MultiServer)
+
+    class Handler(BaseHTTPRequestHandler):
+        def _json(self, obj) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802
+            if self.path == "/stats":
+                self._json(server.stats())
+            elif self.path == "/models" and multi:
+                self._json({"models": list(server.models),
+                            "default": server.default})
+            else:
+                self.send_error(404)
+
+        def do_POST(self):  # noqa: N802
+            # /predict (the default model) or /predict/<model>
+            model = None
+            if self.path.startswith("/predict/"):
+                model = self.path[len("/predict/"):]
+            elif self.path != "/predict":
+                self.send_error(404)
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                images = np.load(io.BytesIO(self.rfile.read(length)),
+                                 allow_pickle=False)
+                if multi:
+                    vol = server.predict(images, model=model)
+                elif model is None:
+                    vol = server.predict(images)
+                else:
+                    self.send_error(404, "single-model server")
+                    return
+            except KeyError as e:
+                self.send_error(404, str(e))
+                return
+            except ServerOverloadedError as e:
+                self.send_error(503, str(e))  # shed load, the client retries
+                return
+            except TimeoutError as e:
+                self.send_error(504, str(e))
+                return
+            except Exception as e:
+                self.send_error(400, str(e))
+                return
+            buf = io.BytesIO()
+            np.save(buf, vol)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.end_headers()
+            self.wfile.write(buf.getvalue())
+
+        def log_message(self, fmt, *args):
+            log.info("http: " + fmt, *args)
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def main(argv: Optional[Sequence[str]] = None, on_ready=None) -> int:
+    """Serves until interrupted, or until another thread calls
+    ``shutdown()`` on the HTTP server, which ``on_ready(httpd)`` receives
+    once it is bound; then closes the model servers."""
+    parser = argparse.ArgumentParser(
+        description="Serve SwinVox checkpoints over HTTP (PyTorch)")
+    parser.add_argument(
+        "--checkpoint", required=True, action="append",
+        help="checkpoint path, or NAME=PATH (repeatable for multi-model "
+             "serving; the first one is the default model)")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--n-views", type=int, default=None)
+    parser.add_argument("--max-wait-ms", type=float, default=5.0)
+    parser.add_argument("--max-queue", type=int, default=1024)
+    parser.add_argument("--timeout-ms", type=float, default=None)
+    parser.add_argument("--platform", default="cuda",
+                        help="torch device to run on (default cuda; 'cpu' "
+                        "for a host-only run)")
+    args = parser.parse_args(argv)
+
+    from swinvox_tpu_torch.infer import Predictor
+
+    logging.basicConfig(level=logging.INFO)
+
+    def build(path):
+        return BatchingServer(
+            Predictor.from_checkpoint(path, device=args.platform),
+            batch_size=args.batch_size, n_views=args.n_views,
+            max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
+            timeout_ms=args.timeout_ms)
+
+    specs = [c.split("=", 1) if "=" in c else [None, c]
+             for c in args.checkpoint]
+    if len(specs) == 1 and specs[0][0] is None:
+        server_cm = build(specs[0][1])
+    else:
+        server_cm = MultiServer({
+            name if name is not None else f"model{i}": build(path)
+            for i, (name, path) in enumerate(specs)})
+    with server_cm as server:
+        httpd = _make_http_server(server, args.port, args.host)
+        log.info("serving on %s:%d (POST /predict[/model], GET /stats)",
+                 args.host, httpd.server_address[1])
+        if on_ready is not None:
+            on_ready(httpd)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

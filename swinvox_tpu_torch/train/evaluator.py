@@ -11,9 +11,11 @@ As in JAX, samples are evaluated in fixed-shape batches of
 ``TEST.EVAL_BATCH_SIZE`` (the last one padded with its last sample and
 the padding masked out of every metric), and up to two batches stay in
 flight: the card runs one while the host assembles the next, and a
-batch's metrics are copied back only when a third is queued.  The
-multi-process mesh path and the voxel renders (``render_dir``) are not
-ported.
+batch's metrics are copied back only when a third is queued.  A loader
+that augments on the card (``TRAIN.DEVICE_AUGMENT``) ships raw samples
+and their parameters, which ``apply_device_augment`` turns into the
+batch's images on the model's device.  The multi-process mesh path and
+the voxel renders (``render_dir``) are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from swinvox_tpu_torch.data.device_augment import apply_device_augment
 from swinvox_tpu_torch.data.pipeline import BatchLoader
 from swinvox_tpu_torch.data.taxonomy import TaxonomyInfo
 from swinvox_tpu_torch.train.steps import make_eval_step
@@ -55,17 +58,25 @@ def evaluate(
     test_iou: Dict[str, List[np.ndarray]] = {}
     test_fscore: Dict[str, List[np.ndarray]] = {}
     pend_img, pend_vol, pend_tax = [], [], []
+    pend_aug: List[dict] = []  # device augmentation: per-sample parameters
     inflight = []
     n_seen = 0
+    device = next(model.parameters()).device
 
     def submit():
         if not pend_img:
             return
         n = len(pend_img)
         pad = batch_size - n
-        images = np.stack(pend_img + [pend_img[-1]] * pad)
+        host = {"images": np.stack(pend_img + [pend_img[-1]] * pad)}
         volumes = np.stack(pend_vol + [pend_vol[-1]] * pad).astype(np.uint8)
-        out = eval_step(images, volumes, enable_merger=enable_merger,
+        if pend_aug:
+            for k in pend_aug[0]:
+                host[f"aug_{k}"] = np.stack(
+                    [p[k] for p in pend_aug] + [pend_aug[-1][k]] * pad)
+            pend_aug.clear()
+        out = eval_step(apply_device_augment(host, cfg, device), volumes,
+                        enable_merger=enable_merger,
                         enable_refiner=enable_refiner)
         out.pop("probs")
         inflight.append((out, list(pend_tax), n))
@@ -89,6 +100,8 @@ def evaluate(
             pend_img.append(batch.images[i])
             pend_vol.append(batch.volumes[i])
             pend_tax.append(batch.taxonomy_ids[i])
+            if batch.aug is not None:
+                pend_aug.append({k: v[i] for k, v in batch.aug.items()})
             if len(pend_img) == batch_size:
                 submit()
                 while len(inflight) > 2:

@@ -48,15 +48,25 @@ def create_train_state(
     generator; default seeded with ``cfg.CONST.RNG_SEED``), on ``device``
     (default ``cuda``), with zeroed optimizer states and step 0, and the
     four optimizers.  Every module exists whether or not its epoch gate is
-    open, so the state keeps one layout through training.  The JAX
-    package's pretrained-backbone graft is not ported: a
-    ``NETWORK.PRETRAINED_BACKBONE`` path is refused."""
-    if cfg.NETWORK.PRETRAINED_BACKBONE:
-        raise NotImplementedError(
-            "NETWORK.PRETRAINED_BACKBONE: the pretrained-backbone graft is "
-            f"not ported (got {cfg.NETWORK.PRETRAINED_BACKBONE!r})")
+    open, so the state keeps one layout through training.  With
+    ``NETWORK.PRETRAINED_BACKBONE`` a directory, its ``resnet50.*`` and
+    ``swin_tiny.*`` weights (``.npz``, ``.pth`` or ``.pt``) are grafted
+    onto the encoder before the optimizer states are made, as in JAX
+    (``models/pretrained.py``)."""
     device = torch.device("cuda" if device is None else device)
-    model = SwinVoxModel.from_config(cfg, generator).to(device)
+    model = SwinVoxModel.from_config(cfg, generator)
+    if cfg.NETWORK.PRETRAINED_BACKBONE:
+        from swinvox_tpu_torch.models.pretrained import (
+            apply_pretrained_backbone,
+            backbone_files,
+            load_state_dict_file,
+        )
+
+        resnet, swin = backbone_files(cfg.NETWORK.PRETRAINED_BACKBONE)
+        apply_pretrained_backbone(
+            model, resnet_sd=resnet and load_state_dict_file(resnet),
+            swin_sd=swin and load_state_dict_file(swin))
+    model = model.to(device)
     optimizers = build_optimizers(cfg, steps_per_epoch)
     opt_states = {name: optimizers[name].init(module_params(model, name))
                   for name in MODULE_NAMES}

@@ -18,15 +18,20 @@ losses every ``LOG_EVERY`` batches and the epoch losses into
 ``logs/train.jsonl``, the ``UPDATE_N_VIEWS_RENDERING`` redraw from
 ``(seed, epoch)``, per-epoch validation into ``logs/val.jsonl``, and the
 best-IoU and ``SAVE_FREQ`` checkpoints under
-``DIR.OUT_PATH/<timestamp>/checkpoints`` beside ``config.json``.  Dropout
-and drop-path masks come from one ``torch.Generator`` seeded before each
-step from ``(CONST.RNG_SEED + 1, step)``, as the JAX step folds the step
-into its key, so a resumed run draws what an uninterrupted one draws.
-The loaders are closed in a ``finally``.  Not ported: the profiler
-traces (``DIR.PROFILE_DIR``, refused), the mesh (``PARALLEL.*`` and
+``DIR.OUT_PATH/<timestamp>/checkpoints`` beside ``config.json``.  Every
+scalar also goes to TensorBoard event files, one directory per stream
+(``logs/train/``, ``logs/val/``).  Dropout and drop-path masks come from
+one ``torch.Generator`` seeded before each step from ``(CONST.RNG_SEED +
+1, step)``, as the JAX step folds the step into its key, so a resumed run
+draws what an uninterrupted one draws.  Under ``TRAIN.DEVICE_AUGMENT``
+the loaders ship raw batches and ``apply_device_augment`` makes the
+images on the card before each step (and in ``evaluate``).  With
+``DIR.PROFILE_DIR`` set (the runner's ``--profile``), batches 2-6 of the
+first epoch run under ``torch.profiler`` and its trace is written there
+(``<host>_<pid>.<ns>.pt.trace.json``, Chrome trace format).  The loaders
+are closed in a ``finally``.  Not ported: the mesh (``PARALLEL.*`` and
 ``CONST.DEVICE_SELECT`` beyond one device, refused here and in
-``test_net``), the TensorBoard event files and voxel renders, and
-``TRAIN.DEVICE_AUGMENT`` (refused).
+``test_net``) and the voxel renders.
 
 ``test_net``: load the checkpoint's weights (``--weights`` or
 ``CONST.WEIGHTS``; full or params-only), evaluate the test split of
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import logging
 import os
+import socket
 import time
 from datetime import datetime
 from typing import Optional, Union
@@ -46,6 +52,10 @@ import numpy as np
 import torch
 
 from swinvox_tpu_torch.config import require_one_device
+from swinvox_tpu_torch.data.device_augment import (
+    apply_device_augment,
+    batch_to_host_dict,
+)
 from swinvox_tpu_torch.data.pipeline import build_loader
 from swinvox_tpu_torch.data.taxonomy import DATASET_INDEX_MAPPING, DatasetType
 from swinvox_tpu_torch.models.swinvox import SwinVoxModel
@@ -76,12 +86,6 @@ def train_net(cfg, device: Union[str, torch.device] = "cuda") -> float:
     returns the best validation IoU (max over thresholds)."""
     cfg.validate()
     require_one_device(cfg)
-    if cfg.TRAIN.DEVICE_AUGMENT:
-        raise NotImplementedError("TRAIN.DEVICE_AUGMENT: the on-device "
-                                  "augmentation is not ported")
-    if cfg.DIR.PROFILE_DIR:
-        raise NotImplementedError("DIR.PROFILE_DIR: the trainer's profiler "
-                                  "traces are not ported")
     train_loader = build_loader(cfg, DatasetType.TRAIN)
     val_loader = build_loader(cfg, DatasetType.VAL)
     try:
@@ -89,6 +93,36 @@ def train_net(cfg, device: Union[str, torch.device] = "cuda") -> float:
     finally:
         train_loader.close()
         val_loader.close()
+
+
+class _Trace:
+    """``torch.profiler`` over a span of steps (the card's kernels too when
+    the model is on one), written to ``out_dir`` when stopped."""
+
+    def __init__(self, out_dir: str, device: torch.device):
+        self.out_dir = out_dir
+        self.device = device
+        self.prof = None
+
+    def start(self) -> None:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.start()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir, f"{socket.gethostname()}_"
+                            f"{os.getpid()}.{time.time_ns()}.pt.trace.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        log.info("Wrote profiler trace to %s", path)
 
 
 def _train(cfg, device, train_loader, val_loader) -> float:
@@ -118,6 +152,7 @@ def _train(cfg, device, train_loader, val_loader) -> float:
     ckpt_dir = os.path.join(output_dir, "checkpoints")
     writer = MetricsLogger(os.path.join(output_dir, "logs"), "train")
     val_writer = MetricsLogger(os.path.join(output_dir, "logs"), "val")
+    trace = _Trace(cfg.DIR.PROFILE_DIR, device)
     try:
         with open(os.path.join(output_dir, "config.json"), "w") as f:
             f.write(cfg.to_json())
@@ -134,12 +169,19 @@ def _train(cfg, device, train_loader, val_loader) -> float:
             enable_refiner = (cfg.NETWORK.USE_REFINER and
                               epoch_idx >= cfg.TRAIN.EPOCH_START_USE_REFINER)
             train_loader.set_epoch(epoch_idx)
+            profiling = cfg.DIR.PROFILE_DIR and epoch_idx == init_epoch
             t_end = time.time()
             for batch_idx, batch in enumerate(train_loader):
+                if profiling and batch_idx == 2:
+                    trace.start()
+                elif profiling and batch_idx == 6:
+                    trace.stop()
                 data_time.update(time.time() - t_end)
+                host = batch_to_host_dict(batch, cfg)
+                images = apply_device_augment(host, cfg, device)
                 generator.manual_seed(step_seed(cfg, state.step))
                 state, metrics = train_step(
-                    state, batch.images, batch.volumes, generator,
+                    state, images, host["volumes"], generator,
                     enable_merger=enable_merger,
                     enable_refiner=enable_refiner)
                 if (batch_idx % max(1, cfg.TRAIN.LOG_EVERY) == 0
@@ -161,6 +203,7 @@ def _train(cfg, device, train_loader, val_loader) -> float:
                 else:
                     batch_time.update(time.time() - t_end)
                 t_end = time.time()
+            trace.stop()  # an epoch shorter than the stop batch still writes
             writer.add_scalar("EncoderDecoder/EpochLoss", encoder_losses.avg,
                               epoch_idx + 1)
             writer.add_scalar("Refiner/EpochLoss", refiner_losses.avg,
@@ -189,6 +232,7 @@ def _train(cfg, device, train_loader, val_loader) -> float:
                 save_checkpoint(os.path.join(ckpt_dir, file_name), state,
                                 epoch_idx, best_iou, best_epoch)
     finally:
+        trace.stop()
         writer.close()
         val_writer.close()
     return best_iou

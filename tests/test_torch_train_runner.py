@@ -17,8 +17,9 @@ matches bit for bit).
 
 Held: every logged batch loss (LOG_EVERY 1) within 1e-3 relative, the
 validation IoU of each epoch within 1e-4, ``best_iou``, ``best_epoch``
-and the checkpoint files written, and the files of the run (the JAX
-package also writes TensorBoard event files, which the port does not).
+and the checkpoint files written, and the files of the run (both write
+a TensorBoard event file per stream, named by the clock, the host and
+the process).
 """
 
 import json
@@ -33,9 +34,12 @@ NANO = {"SWIN_DEPTHS": [1, 1, 1, 1], "RESNET_STAGE_DEPTHS": [1, 1, 1],
 
 
 def _files(run_dir):
+    """The run's files, each TensorBoard event file as ``<dir>/events``."""
     out = set()
     for base, _, names in os.walk(run_dir):
         for n in names:
+            if n.startswith("events.out.tfevents."):
+                n = "events"
             out.add(os.path.relpath(os.path.join(base, n), run_dir))
     return out
 
@@ -176,9 +180,8 @@ def test_runner_train_matches_jax_train_net(tmp_path, monkeypatch):
             assert abs(got - want) <= 1e-4, (step, got, want)
     assert abs(results[0] - jax_best) <= 1e-4
     jfiles, pfiles = _files(jdir), _files(pdir)
-    assert pfiles <= jfiles
-    assert all(f.startswith(("logs/train/", "logs/val/"))
-               for f in jfiles - pfiles)  # TensorBoard event files
+    assert pfiles == jfiles
+    assert {"logs/train/events", "logs/val/events"} <= pfiles
     for name in sorted(os.listdir(pdir / "checkpoints")):
         jmeta, pmeta = (_meta(d / "checkpoints" / name) for d in (jdir, pdir))
         assert pmeta["epoch_idx"] == jmeta["epoch_idx"]
